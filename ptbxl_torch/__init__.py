@@ -1,0 +1,12 @@
+"""PyTorch / CUDA port of ptbxl_tpu for NVIDIA Hopper (H100).
+
+The JAX package ``ptbxl_tpu`` is the reference; this package imports nothing
+of it (and never ``jax``).  Public functions keep the reference's
+channels-last ``[B, T, C]`` layout.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``; without a GPU they raise.
+
+Slice 1 covers the baseline / AF ECGCNN: weights bridge, z-score, model,
+``Predictor`` (framework and hand-written-kernel engines) and Grad-CAM.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,136 @@
+"""Batched ECG classifier inference (port of ``ptbxl_tpu/inference.py``).
+
+    predictor = Predictor.from_checkpoint("outputs/ecg_baseline/ckpts/ecg_baseline_best.npz")
+    probs = predictor(signals)                  # [N, 12, T] raw -> [N, L]
+
+* accepts reference-layout ``[N, 12, T]`` or channels-last ``[N, T, 12]`` raw
+  signals; the per-lead z-score runs on the device
+* ``engine='kernel'`` runs the hand-written fused forward (K2, f32 compute),
+  ``engine='framework'`` the ``nn.Module`` on cuDNN, and ``engine='auto'``
+  takes the kernel for chunks of at most ``PTBXL_TORCH_KERNEL_MAX_BATCH``
+  records (the JAX crossover of 512; its H100 measurement is in PERF.md)
+* ``precision='highest'`` is f32 with TF32 off and the two-pass z-score;
+  ``'default'`` runs the framework engine in bf16 with the one-pass z-score
+  (inference.py:198-202).  The kernel engine computes in f32 either way, as
+  the JAX kernel engine does.
+* chunking, and power-of-two buckets for small N with the last row repeated
+  as padding (inference.py:289-319)
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ptbxl_torch.models.ecg_cnn import ECGCNN
+from ptbxl_torch.models.factory import merge_state
+from ptbxl_torch.models.params_io import check_arch, load_checkpoint
+from ptbxl_torch.ops.kernels.fused_ecgcnn import fold_bn_into_conv, fused_ecgcnn_probs
+from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
+from ptbxl_torch.utils.device import DeviceLike, resolve_device
+
+KERNEL_MAX_BATCH = int(os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH", "512"))
+
+_ENGINES = ("auto", "framework", "kernel")
+_PRECISIONS = ("highest", "default")
+
+
+class Predictor:
+    """Batched baseline / AF ECGCNN inference on one device."""
+
+    def __init__(
+        self,
+        state_dict: Mapping[str, torch.Tensor],
+        classes: Optional[List[str]] = None,
+        num_labels: int = 5,
+        feat_dim: int = 256,
+        arch: str = "ecgcnn",
+        engine: str = "auto",
+        chunk_size: int = 512,
+        normalize: bool = True,
+        data_parallel: bool = False,
+        precision: str = "highest",
+        device: DeviceLike = None,
+    ):
+        """``state_dict`` is reference-layout (``params_io.load_checkpoint``)."""
+        check_arch(arch)
+        if data_parallel:
+            raise NotImplementedError(
+                "data_parallel=True comes with multi-GPU support, ROADMAP queue 1 item 8")
+        if precision == "int8":
+            raise NotImplementedError("precision='int8' comes with ROADMAP queue 1 item 9")
+        if precision not in _PRECISIONS:
+            raise ValueError(f"precision must be one of {_PRECISIONS + ('int8',)}, got {precision!r}")
+        if engine not in _ENGINES:
+            raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
+        self.device = resolve_device(device)
+        self.classes = classes
+        self.chunk_size = chunk_size
+        self.normalize = normalize
+        self.arch = arch
+        self.engine = engine
+        self.precision = precision
+        self._num_labels = num_labels
+
+        dtype = torch.float32 if precision == "highest" else torch.bfloat16
+        self.model = ECGCNN(feat_dim=feat_dim, num_labels=num_labels,
+                            precision=precision, dtype=dtype)
+        merge_state(self.model, state_dict, strict=True)
+        self.model.to(self.device).eval()
+        self._folded = None
+        if engine != "framework":
+            self._folded = fold_bn_into_conv(
+                {k: v.to(self.device) for k, v in self.model.state_dict().items()})
+        self._zscore = (zscore_per_lead_batch if precision == "highest"
+                        else zscore_per_lead_batch_onepass)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_path: str, num_labels: int = 5, arch: str = "ecgcnn",
+                        **kwargs) -> "Predictor":
+        state, classes = load_checkpoint(ckpt_path, arch=arch)
+        return cls(state, classes=classes, num_labels=num_labels, arch=arch, **kwargs)
+
+    def _use_kernel(self, batch: int) -> bool:
+        if self.engine == "auto":
+            return batch <= KERNEL_MAX_BATCH
+        return self.engine == "kernel"
+
+    @torch.no_grad()
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._use_kernel(x.shape[0]):
+            return fused_ecgcnn_probs(x, self._folded, normalize=self.normalize)
+        h = self._zscore(x) if self.normalize else x
+        return torch.sigmoid(self.model(h).float())
+
+    def __call__(self, signals) -> np.ndarray:
+        """signals: [N, 12, T] or [N, T, 12] raw -> probs [N, num_labels] (numpy f32)."""
+        x = np.asarray(signals, dtype=np.float32)
+        if x.ndim == 2:
+            x = x[None]
+        if x.shape[1] == 12 and x.shape[2] != 12:
+            x = x.transpose(0, 2, 1)  # -> channels-last
+        n = x.shape[0]
+        if n == 0:
+            return np.empty((0, self._num_labels), np.float32)
+
+        outs = []
+        cs = self.chunk_size
+        for i0 in range(0, n, cs):
+            chunk = x[i0:i0 + cs]
+            real = chunk.shape[0]
+            if real < cs and n > cs:
+                target = cs
+            elif real < cs:
+                # bucket small one-shot batches to the next power of two, as
+                # the JAX Predictor does (pad rows are dropped below)
+                target = 1 << (real - 1).bit_length() if real > 1 else 1
+            else:
+                target = real
+            if real < target:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], target - real, axis=0)])
+            xt = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+            outs.append(self._forward(xt)[:real].cpu().numpy())
+        return np.concatenate(outs, axis=0)

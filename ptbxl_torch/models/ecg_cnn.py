@@ -1,0 +1,166 @@
+"""1D-CNN ECG classifier (PyTorch port of ``ptbxl_tpu/models/ecg_cnn.py``).
+
+4 x (Conv1d k=15 SAME -> BatchNorm -> ReLU -> MaxPool(2)), channels
+12->32->64->128->256, mean over time, 256-d projection, linear head; 719,397
+parameters for 5 labels.  Submodule names follow the reference state dict
+(``backbone.{i}.net.{0,1}.*``, ``proj.*``, ``head.*``), so a reference
+``.pth`` loads with plain ``load_state_dict``.
+
+* Public methods take and return channels-last ``[B, T, C]`` like the JAX
+  models; the modules transpose to ``[B, C, T]`` inside for ``nn.Conv1d``.
+* ``features``/``tail`` split at the last conv's pre-activation
+  (ecg_cnn.py:211-237): Grad-CAM differentiates ``tail`` with autograd.
+* MaxPool(2) floors odd lengths (T=5000 -> 2500 -> 1250 -> 625 -> 312).
+* ``precision='highest'`` runs f32 convs and matmuls with TF32 off;
+  ``dtype=torch.bfloat16`` computes in bf16 from the f32 parameters (the
+  JAX ``dtype`` attribute).
+* ``torch_init=True`` is torch's own default init (the reference's
+  distribution); ``False`` is flax's default (lecun-normal kernels, zero
+  biases), as in the JAX package.  Both draw from an explicit generator.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ptbxl_torch.utils.device import highest_precision
+
+PARITY_PRECISION = "highest"
+BN_EPS = 1e-5
+
+
+def _init_weight(w: torch.Tensor, fan_in: int, torch_init: bool,
+                 generator: Optional[torch.Generator]) -> None:
+    if torch_init:  # kaiming_uniform(a=sqrt(5)) == U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+        bound = fan_in ** -0.5
+        nn.init.uniform_(w, -bound, bound, generator=generator)
+    else:  # flax lecun_normal: truncated normal on [-2, 2] std, rescaled
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def _init_bias(b: torch.Tensor, fan_in: int, torch_init: bool,
+               generator: Optional[torch.Generator]) -> None:
+    if torch_init:
+        bound = fan_in ** -0.5
+        nn.init.uniform_(b, -bound, bound, generator=generator)
+    else:
+        nn.init.zeros_(b)
+
+
+class ConvBlock(nn.Module):
+    """Conv1d(k=15, SAME) -> BatchNorm -> ReLU -> MaxPool(2) on ``[B, C, T]``.
+
+    ``conv_only``/``post`` expose the pre-BN conv activation, the Grad-CAM tap.
+    """
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 15,
+                 pool: int = 2, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.net = nn.Sequential(
+            nn.Conv1d(in_features, features, kernel_size, padding=kernel_size // 2),
+            nn.BatchNorm1d(features, eps=BN_EPS, momentum=0.1),
+            nn.ReLU(),
+            nn.MaxPool1d(pool),
+        )
+        self.pool = pool
+        self.dtype = dtype
+
+    def conv_only(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.net[0]
+        return F.conv1d(x.to(self.dtype), conv.weight.to(self.dtype),
+                        conv.bias.to(self.dtype), padding=conv.padding)
+
+    def post(self, a: torch.Tensor) -> torch.Tensor:
+        bn = self.net[1]
+        dt = self.dtype
+        h = F.batch_norm(a, bn.running_mean.to(dt), bn.running_var.to(dt),
+                         bn.weight.to(dt), bn.bias.to(dt), self.training,
+                         bn.momentum, bn.eps)
+        # relu(pool(h)) == pool(relu(h)) (monotone); pool first as in JAX
+        return F.relu(F.max_pool1d(h, self.pool))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.post(self.conv_only(x))
+
+
+class ECGCNN(nn.Module):
+    """CNN encoder + classifier for 12-lead ECG; input ``[B, T, in_leads]``."""
+
+    def __init__(
+        self,
+        feat_dim: int = 256,
+        num_labels: int = 3,
+        channels: Sequence[int] = (32, 64, 128, 256),
+        in_leads: int = 12,
+        precision: Optional[str] = PARITY_PRECISION,
+        dtype: torch.dtype = torch.float32,
+        torch_init: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        cins = [in_leads] + list(channels[:-1])
+        self.backbone = nn.Sequential(
+            *[ConvBlock(cin, c, dtype=dtype) for cin, c in zip(cins, channels)]
+        )
+        self.proj = nn.Linear(channels[-1], feat_dim)
+        self.head = nn.Linear(feat_dim, num_labels)
+        self.precision = precision
+        self.dtype = dtype
+        self.reset_parameters(torch_init, generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, torch_init: bool = False,
+                         generator: Optional[torch.Generator] = None) -> None:
+        for blk in self.backbone:
+            conv, bn = blk.net[0], blk.net[1]
+            fan_in = conv.in_channels * conv.kernel_size[0]
+            _init_weight(conv.weight, fan_in, torch_init, generator)
+            _init_bias(conv.bias, fan_in, torch_init, generator)
+            bn.reset_parameters()  # scale 1, bias 0, mean 0, var 1
+        for lin in (self.proj, self.head):
+            _init_weight(lin.weight, lin.in_features, torch_init, generator)
+            _init_bias(lin.bias, lin.in_features, torch_init, generator)
+
+    def _scope(self):
+        if self.precision == "highest":
+            return highest_precision()
+        return contextlib.nullcontext()
+
+    def _dense(self, lin: nn.Linear, v: torch.Tensor) -> torch.Tensor:
+        return F.linear(v.to(self.dtype), lin.weight.to(self.dtype), lin.bias.to(self.dtype))
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """Blocks 0..n-2 + the last block's conv: ``[B, T, C]`` -> ``[B, T', C_last]``.
+
+        T' = 625 for T = 5000: the last Conv1d pre-activation, the tap the
+        reference's Grad-CAM hook captured.
+        """
+        with self._scope():
+            h = x.transpose(1, 2)
+            for blk in self.backbone[:-1]:
+                h = blk(h)
+            return self.backbone[-1].conv_only(h).transpose(1, 2)
+
+    def tail(self, a: torch.Tensor, return_features: bool = False
+             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """Last block's BN/ReLU/pool + mean over T + proj + head, from ``A``."""
+        with self._scope():
+            h = self.backbone[-1].post(a.transpose(1, 2))
+            g = h.mean(dim=2)
+            z = self._dense(self.proj, g)
+            logits = self._dense(self.head, z)
+        if return_features:
+            return logits, z
+        return logits
+
+    def forward(self, x: torch.Tensor, return_features: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """x: [B, T, in_leads] -> logits [B, num_labels] (or (logits, z))."""
+        return self.tail(self.features(x), return_features)

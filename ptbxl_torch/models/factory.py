@@ -1,0 +1,75 @@
+"""Model construction and checkpoint loading (port of ``models/factory.py``)."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from ptbxl_torch.models.ecg_cnn import ECGCNN
+from ptbxl_torch.models.params_io import StateDict, load_checkpoint
+from ptbxl_torch.utils.device import DeviceLike, resolve_device
+
+
+def build_ecgcnn(
+    in_leads: int = 12,
+    feat_dim: int = 256,
+    num_labels: int = 5,
+    seed: int = 42,
+    precision: Optional[str] = "highest",
+    dtype: torch.dtype = torch.float32,
+    torch_init: bool = False,
+    device: DeviceLike = None,
+) -> ECGCNN:
+    """A freshly initialised ECGCNN in eval mode, weights drawn from ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    model = ECGCNN(feat_dim=feat_dim, num_labels=num_labels, in_leads=in_leads,
+                   precision=precision, dtype=dtype, torch_init=torch_init,
+                   generator=gen)
+    return model.to(dev).eval()
+
+
+def merge_state(model: torch.nn.Module, loaded: StateDict, strict: bool) -> None:
+    """Load ``loaded`` into ``model``.
+
+    strict: every model entry must be present with its shape (extra entries
+    are ignored, as in the JAX loader).  Lenient: take the entries whose name
+    and shape match and keep the init values for the rest (the reference's
+    ``strict=False`` demo loads, factory.py:110-146).
+    """
+    own = model.state_dict()
+    if strict:
+        for key, leaf in own.items():
+            if key.endswith("num_batches_tracked"):
+                continue
+            if key not in loaded:
+                raise KeyError(f"Checkpoint missing entry {key}")
+            if tuple(loaded[key].shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"Shape mismatch at {key}: ckpt {tuple(loaded[key].shape)} "
+                    f"vs model {tuple(leaf.shape)}"
+                )
+    take = {k: v for k, v in loaded.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    model.load_state_dict(take, strict=False)
+
+
+def load_ecgcnn(
+    ckpt_path: str,
+    num_labels: int = 5,
+    feat_dim: int = 256,
+    in_leads: int = 12,
+    strict: bool = True,
+    device: DeviceLike = None,
+    **model_kwargs,
+) -> Tuple[ECGCNN, Optional[List[str]]]:
+    """Build an ECGCNN and load a checkpoint (``.npz`` native or reference ``.pth``).
+
+    Returns ``(model, classes)``; the model holds its weights, so there is no
+    separate variables tree as in JAX.
+    """
+    model = build_ecgcnn(in_leads, feat_dim, num_labels, device=device, **model_kwargs)
+    loaded, classes = load_checkpoint(ckpt_path, arch="ecgcnn")
+    merge_state(model, loaded, strict=strict)
+    return model, classes

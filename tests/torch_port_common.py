@@ -1,0 +1,23 @@
+"""Paths and data shared by the PyTorch-port tests (tests/test_torch_*.py)."""
+
+import glob
+import os
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CKPT = os.path.join(HERE, "outputs/ecg_baseline/ckpts/ecg_baseline_best.npz")
+CKPT_AF = os.path.join(HERE, "outputs/af_binary/ckpts/af_binary_best.npz")
+CKPT_MM = os.path.join(HERE, "outputs/ecg_multimodal/ckpts/ecg_multimodal_best.npz")
+GOLD = os.path.join(HERE, "tests", "golden")
+
+
+def demo_signals() -> np.ndarray:
+    """The 7 bundled demo records, reference layout [7, 12, 5000] (already z-scored)."""
+    files = sorted(glob.glob(os.path.join(HERE, "data/demo/single/*.npz")))
+    assert len(files) == 7
+    return np.stack([np.load(f, allow_pickle=True)["ecg"] for f in files])
+
+
+def golden(name: str):
+    return np.load(os.path.join(GOLD, f"golden_{name}.npz"))
