@@ -5,8 +5,10 @@ of it (and never ``jax``).  Public functions keep the reference's
 channels-last ``[B, T, C]`` layout.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; without a GPU they raise.
 
-Slice 1 covers the baseline / AF ECGCNN: weights bridge, z-score, model,
-``Predictor`` (framework and hand-written-kernel engines) and Grad-CAM.
+So far it covers inference of the baseline / AF ECGCNN and of the FiLM
+multimodal model: weights bridge, z-score, models, demographic vectors,
+``Predictor`` (framework and hand-written-kernel engines), Grad-CAM and
+demo importance.
 """
 
 __version__ = "0.1.0"

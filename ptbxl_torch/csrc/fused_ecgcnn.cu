@@ -1,7 +1,10 @@
-// K2: the ECGCNN inference forward, hand-written for Hopper.
+// K2 and K3: the ECGCNN and FiLM multimodal inference forwards, hand-written
+// for Hopper.
 //
 // Replaces ptbxl_tpu/ops/pallas/fused_ecgcnn.py: _make_kernel (:89), launched
-// by _fused_logits_jit (:155) through fused_ecgcnn_logits / _probs (:138/:213).
+// by _fused_logits_jit (:155) through fused_ecgcnn_logits / _probs (:138/:213)
+// (K2), and _make_mm_kernel (:260), launched by _fused_mm_jit (:319) through
+// fused_multimodal_logits / _probs (:305/:360) (K3).
 // Per record: optional per-lead z-score -> 4 x (SAME pad 7, conv k=15 as 15
 // shifted [T,Cin]x[Cin,Cout] products with f32 accumulation, + BN-folded bias,
 // ReLU, MaxPool(2) with floor) -> mean over T -> proj -> head = logits.
@@ -24,8 +27,16 @@
 //     ReLU and the floor pool happen in registers and only [T//2, Cout] is
 //     written; the last conv row of an odd length is never computed.
 //   ptbxl_tail: one block per record: mean over T, proj, head.
+// K3 runs the same backbone launches (the folded backbone is the same
+// function with weights in the same layout) and ends in ptbxl_mm_tail: one
+// block per record, ~4.6 KB of shared memory at full width: mean over T,
+// proj, demographics MLP (fc1, fc2 with ReLU), FiLM (gamma = 1 + tanh,
+// z = gamma * z_ecg + beta) and head.  Its ~0.21 MFLOP a record are nothing
+// beside the backbone's 1.133 GFLOP, so K3's bound is K2's.
 // With bf16 compute every operand is rounded with __float2bfloat16_rn before
-// the multiply and sums stay f32 (JAX's preferred_element_type=f32).
+// the multiply and sums stay f32 (JAX's preferred_element_type=f32).  In K3
+// z_ecg enters the FiLM in f32 and only z_cond is rounded, as the head's
+// operand (_dot1, :252).
 // Later work (wgmma, TMA, shared-memory-resident deep blocks) makes it fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,6 +173,71 @@ __global__ void tail_kernel(const float* __restrict__ h, const float* __restrict
   }
 }
 
+// K3's tail.  h [B, T, C] -> logits [B, L], all weights (in, out):
+// g = mean_t h; z_ecg = g @ pw + pb; h1 = relu(demo @ w1 + b1);
+// h2 = relu(h1 @ w2 + b2); film = h2 @ wf + bf; gamma = 1 + tanh(film[:F]);
+// z = gamma * z_ecg + film[F:]; logits = z @ hw + hb.
+template <bool kBf16>
+__global__ void mm_tail_kernel(const float* __restrict__ h, const float* __restrict__ pw,
+                               const float* __restrict__ pb, const float* __restrict__ w1,
+                               const float* __restrict__ b1, const float* __restrict__ w2,
+                               const float* __restrict__ b2, const float* __restrict__ wf,
+                               const float* __restrict__ bf, const float* __restrict__ hw,
+                               const float* __restrict__ hb, const float* __restrict__ demo,
+                               float* __restrict__ logits, int T, int C, int F, int D, int H1,
+                               int H, int L) {
+  extern __shared__ float sm[];
+  float* g = sm;           // [C]  product operand
+  float* z = g + C;        // [F]  z_ecg in f32, then z_cond as the head's operand
+  float* d = z + F;        // [D]  product operand
+  float* h1 = d + D;       // [H1] product operand
+  float* h2 = h1 + H1;     // [H]  product operand
+  float* film = h2 + H;    // [2F] f32
+  const long rec = blockIdx.x;
+  const float* hr = h + rec * T * C;
+  const float inv_t = 1.f / (float)T;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f;
+    for (int t = 0; t < T; ++t) s = fmaf(inv_t, hr[(long)t * C + c], s);  // ones/T matmul
+    g[c] = rnd<kBf16>(s);
+  }
+  for (int k = threadIdx.x; k < D; k += blockDim.x) d[k] = rnd<kBf16>(demo[rec * D + k]);
+  __syncthreads();
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < C; ++c) s = fmaf(g[c], rnd<kBf16>(pw[(long)c * F + f]), s);
+    z[f] = s + pb[f];
+  }
+  for (int j = threadIdx.x; j < H1; j += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < D; ++k) s = fmaf(d[k], rnd<kBf16>(w1[(long)k * H1 + j]), s);
+    h1[j] = rnd<kBf16>(fmaxf(s + b1[j], 0.f));
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < H; j += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < H1; ++k) s = fmaf(h1[k], rnd<kBf16>(w2[(long)k * H + j]), s);
+    h2[j] = rnd<kBf16>(fmaxf(s + b2[j], 0.f));
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < 2 * F; j += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < H; ++k) s = fmaf(h2[k], rnd<kBf16>(wf[(long)k * 2 * F + j]), s);
+    film[j] = s + bf[j];
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    const float gamma = 1.f + tanhf(film[f]);
+    z[f] = rnd<kBf16>(__fadd_rn(__fmul_rn(gamma, z[f]), film[F + f]));  // not fused, as in JAX
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    float s = 0.f;
+    for (int f = 0; f < F; ++f) s = fmaf(z[f], rnd<kBf16>(hw[(long)f * L + l]), s);
+    logits[rec * L + l] = s + hb[l];
+  }
+}
+
 template <int kCO, bool kBf16, bool kZscore>
 void launch_conv(const float* x, const float* stats, const float* w, const float* b, float* y,
                  int B, int T, int Cin, int Cout, cudaStream_t st) {
@@ -224,6 +300,34 @@ int ptbxl_tail(int device, const void* h, const void* pw, const void* pb, const 
   float* out = static_cast<float*>(logits);
   if (bf16) tail_kernel<true><<<B, 256, smem, st>>>(hs, pws, pbs, hws, hbs, out, T, C, F, L);
   else tail_kernel<false><<<B, 256, smem, st>>>(hs, pws, pbs, hws, hbs, out, T, C, F, L);
+  return (int)cudaGetLastError();
+}
+
+// K3's tail: mean over T + proj + demographics MLP + FiLM + head.
+// h [B, T, C]; pw [C, F]; fc1_w [D, H1]; fc2_w [H1, H]; film_w [H, 2F];
+// hw [F, L]; demo [B, D]; logits [B, L].
+int ptbxl_mm_tail(int device, const void* h, const void* pw, const void* pb, const void* fc1_w,
+                  const void* fc1_b, const void* fc2_w, const void* fc2_b, const void* film_w,
+                  const void* film_b, const void* hw, const void* hb, const void* demo,
+                  void* logits, int B, int T, int C, int F, int D, int H1, int H, int L, int bf16,
+                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || T <= 0 || C <= 0 || F <= 0 || D <= 0 || H1 <= 0 || H <= 0 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(C + 3 * F + D + H1 + H) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // no attribute asked for
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  float* out = static_cast<float*>(logits);
+  if (bf16)
+    mm_tail_kernel<true><<<B, 256, smem, st>>>(f(h), f(pw), f(pb), f(fc1_w), f(fc1_b), f(fc2_w),
+                                               f(fc2_b), f(film_w), f(film_b), f(hw), f(hb),
+                                               f(demo), out, T, C, F, D, H1, H, L);
+  else
+    mm_tail_kernel<false><<<B, 256, smem, st>>>(f(h), f(pw), f(pb), f(fc1_w), f(fc1_b), f(fc2_w),
+                                                f(fc2_b), f(film_w), f(film_b), f(hw), f(hb),
+                                                f(demo), out, T, C, F, D, H1, H, L);
   return (int)cudaGetLastError();
 }
 

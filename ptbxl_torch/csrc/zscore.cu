@@ -1,8 +1,8 @@
 // K1: per-lead z-score of a channels-last batch, hand-written for Hopper.
 //
 // Replaces ptbxl_tpu/ops/pallas/zscore.py: zscore_tile (:44), _zscore_kernel
-// (:59) and zscore_pallas (:63).  For every (record, lead) over time:
-//   mean = sum(x) / T;  var = sum((x - mean)^2) / T  (two passes, f32 sums)
+// (:59) and zscore_pallas (:64).  For every (record, lead) over time:
+//   mean = sum(x) / T;  var = sum((x - mean)^2) / T  (two passes, f32 moments)
 //   out  = (x - mean) / (sqrt(var) + 1e-6)           in the output dtype
 // ptbxl_zscore writes the normalized [B, T, C] tensor (f32 or bf16 in and
 // out); ptbxl_zscore_stats writes only [B, C, 2] = (mean, std + eps), which
@@ -13,10 +13,17 @@
 // Design: one block per record.  The leads are interleaved in memory (flat
 // index t*C + c), so a block of n = C * floor(512 / C) threads walks the flat
 // record with stride n and every thread always sees the same lead (index % C):
-// reads stay coalesced and each thread keeps one f32 partial sum.  The C
+// reads stay coalesced and each thread keeps one partial sum.  The C
 // per-lead totals are folded in shared memory.  The three passes (sum,
 // centred sum, write) re-read the record; a record is 240 KB at f32, more
 // than a block's shared memory, so the re-reads go to L2 / HBM.
+// The partials and their fold are f64: each thread adds ~T*C/n values in a
+// row, and in f32 that loses bits against a tree reduction when a lead's DC
+// offset is large beside its std (1.6e-5 on the output at offset ~N(0, 3),
+// scale 0.1).  The addends (x, and (x - mean)^2 with x - mean and the square
+// in f32) and the moments (total/T, rounded to f32 first) stay the f32
+// two-pass form of the reference; the f64 adds cost nothing in a bytes-bound
+// kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -34,19 +41,19 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, long i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
-// Total over the block of each thread's partial for its lead (threadIdx.x % C).
-// red holds blockDim.x + C floats.
-__device__ float lead_total(float partial, float* red, int C) {
+// Total over the block of each thread's partial for its lead (threadIdx.x % C),
+// rounded to f32.  red holds blockDim.x + C doubles.
+__device__ float lead_total(double partial, double* red, int C) {
   const int n = blockDim.x;
   red[threadIdx.x] = partial;
   __syncthreads();
   if (threadIdx.x < C) {
-    float s = 0.f;
+    double s = 0.0;
     for (int j = threadIdx.x; j < n; j += C) s += red[j];
     red[n + threadIdx.x] = s;
   }
   __syncthreads();
-  const float tot = red[n + threadIdx.x % C];
+  const float tot = (float)red[n + threadIdx.x % C];
   __syncthreads();  // red is reused by the next call
   return tot;
 }
@@ -54,20 +61,20 @@ __device__ float lead_total(float partial, float* red, int C) {
 template <typename Tin, typename Tout, bool kStatsOnly>
 __global__ void zscore_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
                               float* __restrict__ stats, int T, int C) {
-  extern __shared__ float red[];
+  extern __shared__ double red[];
   const long len = (long)T * C;
   const long base = (long)blockIdx.x * len;
   const Tin* xr = x + base;
   const int n = blockDim.x;
 
-  float s = 0.f;
-  for (long i = threadIdx.x; i < len; i += n) s += load_f(xr, i);
+  double s = 0.0;
+  for (long i = threadIdx.x; i < len; i += n) s += (double)load_f(xr, i);
   const float mean = lead_total(s, red, C) / (float)T;
 
-  float v = 0.f;
+  double v = 0.0;
   for (long i = threadIdx.x; i < len; i += n) {
     const float d = load_f(xr, i) - mean;
-    v += d * d;
+    v += (double)__fmul_rn(d, d);  // the f32 square of the reference, not fused
   }
   const float sd = sqrtf(lead_total(v, red, C) / (float)T) + kEps;
 
@@ -86,7 +93,7 @@ __global__ void zscore_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
 template <typename Tin, typename Tout, bool kStatsOnly>
 void launch(const void* x, void* out, void* stats, int B, int T, int C, cudaStream_t st) {
   const int threads = (kMaxThreads / C) * C;
-  const size_t smem = (size_t)(threads + C) * sizeof(float);
+  const size_t smem = (size_t)(threads + C) * sizeof(double);
   zscore_kernel<Tin, Tout, kStatsOnly><<<B, threads, smem, st>>>(
       static_cast<const Tin*>(x), static_cast<Tout*>(out), static_cast<float*>(stats), T, C);
 }

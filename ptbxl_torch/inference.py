@@ -3,18 +3,23 @@
     predictor = Predictor.from_checkpoint("outputs/ecg_baseline/ckpts/ecg_baseline_best.npz")
     probs = predictor(signals)                  # [N, 12, T] raw -> [N, L]
 
+    mm = Predictor.from_checkpoint("outputs/ecg_multimodal/ckpts/ecg_multimodal_best.npz",
+                                   arch="multimodal")
+    probs = mm(signals, demo=demo_vectors)      # + [N, 5] demographics
+
 * accepts reference-layout ``[N, 12, T]`` or channels-last ``[N, T, 12]`` raw
   signals; the per-lead z-score runs on the device
-* ``engine='kernel'`` runs the hand-written fused forward (K2, f32 compute),
-  ``engine='framework'`` the ``nn.Module`` on cuDNN, and ``engine='auto'``
+* ``engine='kernel'`` runs the hand-written fused forward (K2, or K3 for
+  ``arch='multimodal'``; f32 compute), ``engine='framework'`` the
+  ``nn.Module`` on cuDNN, and ``engine='auto'``
   takes the kernel for chunks of at most ``PTBXL_TORCH_KERNEL_MAX_BATCH``
   records (the JAX crossover of 512; its H100 measurement is in PERF.md)
 * ``precision='highest'`` is f32 with TF32 off and the two-pass z-score;
   ``'default'`` runs the framework engine in bf16 with the one-pass z-score
   (inference.py:198-202).  The kernel engine computes in f32 either way, as
   the JAX kernel engine does.
-* chunking, and power-of-two buckets for small N with the last row repeated
-  as padding (inference.py:289-319)
+* chunking, and power-of-two buckets for small N with the last row (signal
+  and demo vector) repeated as padding (inference.py:289-319)
 """
 
 from __future__ import annotations
@@ -26,9 +31,15 @@ import numpy as np
 import torch
 
 from ptbxl_torch.models.ecg_cnn import ECGCNN
+from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
 from ptbxl_torch.models.factory import merge_state
 from ptbxl_torch.models.params_io import check_arch, load_checkpoint
-from ptbxl_torch.ops.kernels.fused_ecgcnn import fold_bn_into_conv, fused_ecgcnn_probs
+from ptbxl_torch.ops.kernels.fused_ecgcnn import (
+    fold_bn_into_conv,
+    fold_multimodal,
+    fused_ecgcnn_probs,
+    fused_multimodal_probs,
+)
 from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
 
@@ -39,7 +50,7 @@ _PRECISIONS = ("highest", "default")
 
 
 class Predictor:
-    """Batched baseline / AF ECGCNN inference on one device."""
+    """Batched baseline / AF ECGCNN or FiLM multimodal inference on one device."""
 
     def __init__(
         self,
@@ -48,6 +59,7 @@ class Predictor:
         num_labels: int = 5,
         feat_dim: int = 256,
         arch: str = "ecgcnn",
+        demo_hidden_dim: int = 64,
         engine: str = "auto",
         chunk_size: int = 512,
         normalize: bool = True,
@@ -76,14 +88,19 @@ class Predictor:
         self._num_labels = num_labels
 
         dtype = torch.float32 if precision == "highest" else torch.bfloat16
-        self.model = ECGCNN(feat_dim=feat_dim, num_labels=num_labels,
-                            precision=precision, dtype=dtype)
+        if arch == "multimodal":
+            self.model = ECGMultimodal(feat_dim=feat_dim, num_labels=num_labels,
+                                       demo_hidden_dim=demo_hidden_dim,
+                                       precision=precision, dtype=dtype)
+        else:
+            self.model = ECGCNN(feat_dim=feat_dim, num_labels=num_labels,
+                                precision=precision, dtype=dtype)
         merge_state(self.model, state_dict, strict=True)
         self.model.to(self.device).eval()
         self._folded = None
         if engine != "framework":
-            self._folded = fold_bn_into_conv(
-                {k: v.to(self.device) for k, v in self.model.state_dict().items()})
+            fold = fold_multimodal if arch == "multimodal" else fold_bn_into_conv
+            self._folded = fold({k: v.to(self.device) for k, v in self.model.state_dict().items()})
         self._zscore = (zscore_per_lead_batch if precision == "highest"
                         else zscore_per_lead_batch_onepass)
 
@@ -99,20 +116,33 @@ class Predictor:
         return self.engine == "kernel"
 
     @torch.no_grad()
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, d: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One chunk on the device: x [B, T, 12] (+ d [B, 5] for multimodal) -> probs."""
         if self._use_kernel(x.shape[0]):
+            if self.arch == "multimodal":
+                return fused_multimodal_probs(x, d, self._folded, normalize=self.normalize)
             return fused_ecgcnn_probs(x, self._folded, normalize=self.normalize)
         h = self._zscore(x) if self.normalize else x
-        return torch.sigmoid(self.model(h).float())
+        logits = self.model(h, d) if self.arch == "multimodal" else self.model(h)
+        return torch.sigmoid(logits.float())
 
-    def __call__(self, signals) -> np.ndarray:
-        """signals: [N, 12, T] or [N, T, 12] raw -> probs [N, num_labels] (numpy f32)."""
+    def __call__(self, signals, demo=None) -> np.ndarray:
+        """signals: [N, 12, T] or [N, T, 12] raw (+ demo [N, 5] for multimodal)
+        -> probs [N, num_labels] (numpy f32)."""
         x = np.asarray(signals, dtype=np.float32)
         if x.ndim == 2:
             x = x[None]
         if x.shape[1] == 12 and x.shape[2] != 12:
             x = x.transpose(0, 2, 1)  # -> channels-last
         n = x.shape[0]
+        if self.arch == "multimodal":
+            if demo is None:
+                raise ValueError("multimodal Predictor requires demo vectors")
+            demo = np.asarray(demo, dtype=np.float32)
+            if demo.ndim == 1:
+                demo = demo[None]
+            if demo.shape != (n, 5):
+                raise ValueError(f"demo must be [N, 5] matching signals N={n}; got {demo.shape}")
         if n == 0:
             return np.empty((0, self._num_labels), np.float32)
 
@@ -129,8 +159,10 @@ class Predictor:
                 target = 1 << (real - 1).bit_length() if real > 1 else 1
             else:
                 target = real
+            args = [chunk, demo[i0:i0 + cs]] if self.arch == "multimodal" else [chunk]
             if real < target:
-                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], target - real, axis=0)])
-            xt = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-            outs.append(self._forward(xt)[:real].cpu().numpy())
+                args = [np.concatenate([a, np.repeat(a[-1:], target - real, axis=0)])
+                        for a in args]
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in args]
+            outs.append(self._forward(*args)[:real].cpu().numpy())
         return np.concatenate(outs, axis=0)

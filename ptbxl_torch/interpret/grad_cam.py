@@ -13,17 +13,20 @@ pre-activation; the JAX package pulls a one-hot cotangent back through
 ``norm_first=True`` is the reference library's order (guarded min-max, then
 interpolate); ``False`` the demo scripts' (interpolate, then
 ``(cam - min) / (max + eps)`` with eps 1e-9, or 1e-8 for script 12).  It runs
-on the framework modules (autograd), like the JAX version.
+on the framework modules (autograd), like the JAX version.  For the FiLM
+multimodal model (``multimodal=True``) the tail also takes the demo vectors;
+``demo_importance`` is the |grad x input| saliency on them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ptbxl_torch.models.ecg_cnn import ECGCNN
+from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
 
 
 def linear_interpolate_1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
@@ -58,30 +61,35 @@ def _minmax_eps(cam: torch.Tensor, eps: float) -> torch.Tensor:
     return cam / (cam.amax(dim=-1, keepdim=True) + eps)
 
 
+def _as_tensor(v, model: torch.nn.Module) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=model.head.weight.device)
+
+
 class GradCAM:
-    """(probs, cam) for an ECGCNN with ``features``/``tail``.
+    """(probs, cam) for a model with ``features``/``tail``.
 
     Args:
-        model: the ``ECGCNN`` (it holds its weights); it is put in eval mode.
+        model: the ``ECGCNN`` or ``ECGMultimodal`` (it holds its weights); it
+            is put in eval mode.
         signal_length: output CAM length (None keeps T').
         norm_first: normalize-then-interpolate (library variant) vs
             interpolate-then-normalize (demo variants).
         eps: epsilon of the non-guarded normalization (ignored if norm_first).
-        multimodal: the multimodal model is not ported yet.
+        multimodal: ``tail`` takes the demo vectors ``x_demo`` [B, 5].
 
-    Input is channels-last ``[B, T, C]`` (a tensor or array; it is moved to
-    the model's device).
+    Inputs are channels-last ``[B, T, C]`` and ``[B, 5]`` (tensors or
+    arrays; they are moved to the model's device).
     """
 
-    def __init__(self, model: ECGCNN, signal_length: Optional[int] = None,
+    def __init__(self, model: Union[ECGCNN, ECGMultimodal], signal_length: Optional[int] = None,
                  norm_first: bool = False, eps: float = 1e-9, multimodal: bool = False):
-        if multimodal:
-            raise NotImplementedError(
-                "multimodal Grad-CAM comes with the multimodal model, ROADMAP queue 1 item 4")
+        if multimodal != isinstance(model, ECGMultimodal):
+            raise TypeError(f"multimodal={multimodal} does not fit a {type(model).__name__}")
         self.model = model.eval()
         self.signal_length = signal_length
         self.norm_first = norm_first
         self.eps = eps
+        self.multimodal = multimodal
 
     def _finish(self, cam: torch.Tensor) -> torch.Tensor:
         if self.norm_first:
@@ -93,9 +101,9 @@ class GradCAM:
             cam = linear_interpolate_1d(cam, self.signal_length)
         return _minmax_eps(cam, self.eps)
 
-    def multi(self, x: torch.Tensor, class_indices: Sequence[int]
+    def multi(self, x: torch.Tensor, class_indices: Sequence[int], x_demo=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: [B, T, C], class_indices: [n] -> (probs [B, L], cams [n, B, T]).
+        """x: [B, T, C], class_indices: [n] (+ x_demo [B, 5]) -> (probs [B, L], cams [n, B, T]).
 
         One forward of ``features`` and ``tail``; each class then costs one
         backward of its one-hot cotangent through ``tail``.
@@ -103,12 +111,14 @@ class GradCAM:
         idx = [int(c) for c in class_indices]
         if not idx:
             raise ValueError("class_indices is empty")
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.model.head.weight.device)
+        if self.multimodal and x_demo is None:
+            raise ValueError("multimodal Grad-CAM requires x_demo")
+        extra = (_as_tensor(x_demo, self.model),) if self.multimodal else ()
         with torch.no_grad():
-            a = self.model.features(x)
+            a = self.model.features(_as_tensor(x, self.model))
         a = a.detach().requires_grad_(True)
         with torch.enable_grad():
-            logits = self.model.tail(a)
+            logits = self.model.tail(a, *extra)
             cams = []
             for n, ci in enumerate(idx):
                 ct = torch.zeros_like(logits)
@@ -118,13 +128,33 @@ class GradCAM:
                 cams.append(torch.relu((w * a.detach()).sum(dim=-1)))  # [B, T']
         return torch.sigmoid(logits.detach()), self._finish(torch.stack(cams))
 
-    def __call__(self, x: torch.Tensor, class_idx: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: [B, T, C] -> (probs [B, L], cam [B, signal_length])."""
-        probs, cams = self.multi(x, [class_idx])
+    def __call__(self, x: torch.Tensor, class_idx: int = 0, x_demo=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: [B, T, C] (+ x_demo [B, 5]) -> (probs [B, L], cam [B, signal_length])."""
+        probs, cams = self.multi(x, [class_idx], x_demo)
         return probs, cams[0]
 
 
-def batch_grad_cam(cam_fn: GradCAM, x: torch.Tensor, class_indices: Sequence[int]
+def batch_grad_cam(cam_fn: GradCAM, x: torch.Tensor, class_indices: Sequence[int], x_demo=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CAMs for a batch across several classes in one pass: (probs, cams [n, B, T])."""
-    return cam_fn.multi(x, class_indices)
+    return cam_fn.multi(x, class_indices, x_demo)
+
+
+def demo_importance(model: ECGMultimodal, x_ecg, x_demo, class_idx: int) -> torch.Tensor:
+    """|grad x input| saliency on the demographic vector, max-normalized: [5].
+
+    ``|d(sum_b logits[b, class_idx]) / d demo[0] * demo[0]|``, divided by its
+    max only when the max is > 0.  Record 0 alone, even when B > 1, as the
+    reference (scripts/12_grad_cam_ecg_demo.py:78-97) and the JAX version do.
+    """
+    model.eval()
+    d = _as_tensor(x_demo, model).detach().requires_grad_(True)
+    with torch.no_grad():
+        a = model.features(_as_tensor(x_ecg, model))
+    with torch.enable_grad():
+        score = model.tail(a, d)[:, class_idx].sum()
+        (grad,) = torch.autograd.grad(score, d)
+    imp = (grad[0] * d.detach()[0]).abs()
+    mx = imp.max()
+    return torch.where(mx > 0, imp / torch.where(mx > 0, mx, torch.ones_like(mx)), imp)

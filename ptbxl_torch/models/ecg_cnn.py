@@ -54,6 +54,32 @@ def _init_bias(b: torch.Tensor, fan_in: int, torch_init: bool,
         nn.init.zeros_(b)
 
 
+@torch.no_grad()
+def reset_layers(blocks: Sequence[nn.Module], linears: Sequence[nn.Linear], torch_init: bool,
+                 generator: Optional[torch.Generator]) -> None:
+    """Initialise conv blocks (BN to scale 1, bias 0, mean 0, var 1) and Linear layers."""
+    for blk in blocks:
+        conv, bn = blk.net[0], blk.net[1]
+        fan_in = conv.in_channels * conv.kernel_size[0]
+        _init_weight(conv.weight, fan_in, torch_init, generator)
+        _init_bias(conv.bias, fan_in, torch_init, generator)
+        bn.reset_parameters()
+    for lin in linears:
+        _init_weight(lin.weight, lin.in_features, torch_init, generator)
+        _init_bias(lin.bias, lin.in_features, torch_init, generator)
+
+
+def precision_scope(precision: Optional[str]):
+    """``highest_precision()`` for ``precision='highest'``, else no change."""
+    return highest_precision() if precision == "highest" else contextlib.nullcontext()
+
+
+def dense(lin: nn.Linear, v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A Linear layer computed in ``dtype`` from its f32 parameters (flax ``dtype``):
+    the product is rounded to ``dtype``, then the bias is added, as flax does."""
+    return F.linear(v.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+
+
 class ConvBlock(nn.Module):
     """Conv1d(k=15, SAME) -> BatchNorm -> ReLU -> MaxPool(2) on ``[B, C, T]``.
 
@@ -74,15 +100,16 @@ class ConvBlock(nn.Module):
 
     def conv_only(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.net[0]
-        return F.conv1d(x.to(self.dtype), conv.weight.to(self.dtype),
-                        conv.bias.to(self.dtype), padding=conv.padding)
+        dt = self.dtype
+        y = F.conv1d(x.to(dt), conv.weight.to(dt), padding=conv.padding)
+        return y + conv.bias.to(dt)[:, None]  # the bias after the rounded product, as flax
 
     def post(self, a: torch.Tensor) -> torch.Tensor:
         bn = self.net[1]
-        dt = self.dtype
-        h = F.batch_norm(a, bn.running_mean.to(dt), bn.running_var.to(dt),
-                         bn.weight.to(dt), bn.bias.to(dt), self.training,
-                         bn.momentum, bn.eps)
+        # f32 statistics and affine on a dtype input: computed in f32 and rounded
+        # once to dtype, as flax normalizes (no f32 copy of the activation)
+        h = F.batch_norm(a, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         self.training, bn.momentum, bn.eps)
         # relu(pool(h)) == pool(relu(h)) (monotone); pool first as in JAX
         return F.relu(F.max_pool1d(h, self.pool))
 
@@ -115,26 +142,15 @@ class ECGCNN(nn.Module):
         self.dtype = dtype
         self.reset_parameters(torch_init, generator)
 
-    @torch.no_grad()
     def reset_parameters(self, torch_init: bool = False,
                          generator: Optional[torch.Generator] = None) -> None:
-        for blk in self.backbone:
-            conv, bn = blk.net[0], blk.net[1]
-            fan_in = conv.in_channels * conv.kernel_size[0]
-            _init_weight(conv.weight, fan_in, torch_init, generator)
-            _init_bias(conv.bias, fan_in, torch_init, generator)
-            bn.reset_parameters()  # scale 1, bias 0, mean 0, var 1
-        for lin in (self.proj, self.head):
-            _init_weight(lin.weight, lin.in_features, torch_init, generator)
-            _init_bias(lin.bias, lin.in_features, torch_init, generator)
+        reset_layers(self.backbone, (self.proj, self.head), torch_init, generator)
 
     def _scope(self):
-        if self.precision == "highest":
-            return highest_precision()
-        return contextlib.nullcontext()
+        return precision_scope(self.precision)
 
     def _dense(self, lin: nn.Linear, v: torch.Tensor) -> torch.Tensor:
-        return F.linear(v.to(self.dtype), lin.weight.to(self.dtype), lin.bias.to(self.dtype))
+        return dense(lin, v, self.dtype)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """Blocks 0..n-2 + the last block's conv: ``[B, T, C]`` -> ``[B, T', C_last]``.

@@ -7,6 +7,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ptbxl_torch.models.ecg_cnn import ECGCNN
+from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
 from ptbxl_torch.models.params_io import StateDict, load_checkpoint
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
 
@@ -27,6 +28,27 @@ def build_ecgcnn(
     model = ECGCNN(feat_dim=feat_dim, num_labels=num_labels, in_leads=in_leads,
                    precision=precision, dtype=dtype, torch_init=torch_init,
                    generator=gen)
+    return model.to(dev).eval()
+
+
+def build_multimodal(
+    in_leads: int = 12,
+    ecg_feat_dim: int = 256,
+    demo_hidden_dim: int = 64,
+    num_labels: int = 5,
+    seed: int = 42,
+    precision: Optional[str] = "highest",
+    dtype: torch.dtype = torch.float32,
+    torch_init: bool = False,
+    device: DeviceLike = None,
+) -> ECGMultimodal:
+    """A freshly initialised FiLM multimodal model in eval mode, weights drawn from ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    model = ECGMultimodal(feat_dim=ecg_feat_dim, num_labels=num_labels,
+                          demo_hidden_dim=demo_hidden_dim, in_leads=in_leads,
+                          precision=precision, dtype=dtype, torch_init=torch_init,
+                          generator=gen)
     return model.to(dev).eval()
 
 
@@ -71,5 +93,23 @@ def load_ecgcnn(
     """
     model = build_ecgcnn(in_leads, feat_dim, num_labels, device=device, **model_kwargs)
     loaded, classes = load_checkpoint(ckpt_path, arch="ecgcnn")
+    merge_state(model, loaded, strict=strict)
+    return model, classes
+
+
+def load_multimodal(
+    ckpt_path: str,
+    num_labels: int = 5,
+    ecg_feat_dim: int = 256,
+    demo_hidden_dim: int = 64,
+    in_leads: int = 12,
+    strict: bool = True,
+    device: DeviceLike = None,
+    **model_kwargs,
+) -> Tuple[ECGMultimodal, Optional[List[str]]]:
+    """Build the multimodal model and load a checkpoint; returns ``(model, classes)``."""
+    model = build_multimodal(in_leads, ecg_feat_dim, demo_hidden_dim, num_labels,
+                             device=device, **model_kwargs)
+    loaded, classes = load_checkpoint(ckpt_path, arch="multimodal")
     merge_state(model, loaded, strict=strict)
     return model, classes

@@ -8,10 +8,12 @@ The port's own copy of what it needs from ``ptbxl_tpu/models/params_io.py``:
 * ``read_pth`` reads the reference's ``torch.save`` format, either
   ``{"model_state": state_dict, "classes": [...]}`` or a bare state dict.
 * ``from_flax_variables`` turns a ``{'params', 'batch_stats'}`` numpy tree
-  into the reference state-dict layout that the port's modules use
-  (``backbone.{i}.net.{0,1}.*``, ``proj.*``, ``head.*``).  Conv kernels go
-  (k, in, out) -> (out, in, k) and Dense kernels (in, out) -> (out, in)
-  (params_io.py:147-220).
+  into the reference state-dict layout that the port's modules use:
+  ``backbone.{i}.net.{0,1}.*``, ``proj.*``, ``head.*`` for ``arch='ecgcnn'``;
+  ``ecg_backbone.backbone.{i}.net.{0,1}.*``, ``ecg_backbone.proj.*``,
+  ``demo_encoder.mlp.{0,2}.*``, ``film_gen.*``, ``head.*`` for
+  ``arch='multimodal'``.  Conv kernels go (k, in, out) -> (out, in, k) and
+  Dense kernels (in, out) -> (out, in) (params_io.py:147-261).
 """
 
 from __future__ import annotations
@@ -78,11 +80,14 @@ def _dense_to_state(p: Dict, name: str, out: StateDict) -> None:
     out[name + ".bias"] = _t(p["bias"])
 
 
+ARCHS = ("ecgcnn", "multimodal")
+
+
 def check_arch(arch: str) -> None:
-    if arch != "ecgcnn":
+    if arch not in ARCHS:
         raise NotImplementedError(
-            f"arch={arch!r}: only 'ecgcnn' is ported so far; the multimodal "
-            "model comes with ROADMAP queue 1 item 3"
+            f"arch={arch!r}: the port loads {ARCHS}; the 'backbone' warm start "
+            "comes with training, ROADMAP queue 1 item 7"
         )
 
 
@@ -90,9 +95,17 @@ def from_flax_variables(variables: Dict[str, Any], arch: str = "ecgcnn") -> Stat
     """Flax ``{'params', 'batch_stats'}`` numpy tree -> reference state dict."""
     check_arch(arch)
     out: StateDict = {}
-    params = variables["params"]
-    _blocks_to_state(params, variables["batch_stats"], "backbone.", out)
-    _dense_to_state(params["proj"], "proj", out)
+    params, stats = variables["params"], variables["batch_stats"]
+    if arch == "multimodal":
+        bb = params["ecg_backbone"]
+        _blocks_to_state(bb, stats["ecg_backbone"], "ecg_backbone.backbone.", out)
+        _dense_to_state(bb["proj"], "ecg_backbone.proj", out)
+        _dense_to_state(params["demo_encoder"]["fc1"], "demo_encoder.mlp.0", out)
+        _dense_to_state(params["demo_encoder"]["fc2"], "demo_encoder.mlp.2", out)
+        _dense_to_state(params["film_gen"], "film_gen", out)
+    else:
+        _blocks_to_state(params, stats, "backbone.", out)
+        _dense_to_state(params["proj"], "proj", out)
     _dense_to_state(params["head"], "head", out)
     return out
 

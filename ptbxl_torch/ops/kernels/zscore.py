@@ -1,13 +1,13 @@
 """K1: per-lead z-score, CUDA kernel + plain PyTorch version.
 
 Replaces ``ptbxl_tpu/ops/pallas/zscore.py``: ``zscore_tile`` (:44),
-``_zscore_kernel`` (:59) and ``zscore_pallas`` (:63, pallas_call :72).
+``_zscore_kernel`` (:59) and ``zscore_pallas`` (:64, pallas_call :72).
 Kernel: ``ptbxl_torch/csrc/zscore.cu``.
 
 What bounds it on the H100: bytes (one read of the input, one write of the
 output, a few operations an element).  The design (one block per record,
-threads strided by a multiple of C so each keeps one lead's f32 partial) is
-described in the source.
+threads strided by a multiple of C so each keeps one lead's partial, added
+in f64 so a large DC offset costs no bits) is described in the source.
 
 ``zscore`` maps ``[B, T, C]`` to the same shape, f32 sums, output dtype =
 input dtype unless ``out_dtype`` says otherwise (f32 and bf16).
@@ -39,11 +39,21 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _moments(xf: torch.Tensor):
-    """Two-pass per-lead mean and ``sqrt(var) + eps`` of an f32 [B, T, C]."""
-    t = xf.shape[1]
-    mean = xf.sum(dim=1, keepdim=True) / t
+    """Two-pass per-lead mean and ``sqrt(var) + eps`` of an f32 [B, T, C].
+
+    The f32 form of ``zscore_tile``: f32 addends (x, and the f32 square of
+    x - mean), totals rounded to f32 before the division by T.  The totals
+    are accumulated in f64, as the kernel does, so neither side loses bits
+    to its summation order when a lead's DC offset is large beside its std.
+    T is a tensor on the data's device: PyTorch's CUDA division by a host
+    scalar multiplies by its reciprocal, which can be 1 ulp off the kernel's
+    IEEE division.
+    """
+    t = xf.new_tensor(float(xf.shape[1]))
+    mean = xf.sum(dim=1, keepdim=True, dtype=torch.float64).float() / t
     cen = xf - mean
-    sd = torch.sqrt((cen * cen).sum(dim=1, keepdim=True) / t) + EPS
+    sq = (cen * cen).sum(dim=1, keepdim=True, dtype=torch.float64).float()
+    sd = torch.sqrt(sq / t) + EPS
     return mean, sd
 
 

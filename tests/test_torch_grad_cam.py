@@ -97,7 +97,8 @@ def test_linear_interpolate_matches_torch_interpolate():
 
 
 def test_multimodal_not_ported_yet(baseline):
-    with pytest.raises(NotImplementedError, match="item 4"):
+    """multimodal=True is ported (tests/test_torch_multimodal.py); on an ECGCNN it is refused."""
+    with pytest.raises(TypeError, match="multimodal=True"):
         GradCAM(baseline, multimodal=True)
 
 

@@ -131,8 +131,11 @@ def test_later_features_raise(kwargs, item):
 
 
 def test_multimodal_raises():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Predictor.from_checkpoint(CKPT_MM, arch="multimodal", device="cpu")
+    """The multimodal Predictor is ported (tests/test_torch_predictor_mm.py); it raises
+    without demo vectors (test_predictor.py:63)."""
+    p = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", device="cpu")
+    with pytest.raises(ValueError, match="demo"):
+        p(demo_signals()[:1])
 
 
 def test_bad_engine_or_precision():

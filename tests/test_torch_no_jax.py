@@ -21,6 +21,8 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "import ptbxl_torch, ptbxl_torch.inference, ptbxl_torch.interpret.grad_cam\n"
         "import ptbxl_torch.demo_inference, ptbxl_torch.interpret.plotting\n"
+        "import ptbxl_torch.models.ecg_multimodal, ptbxl_torch.data.demo_vector\n"
+        "import ptbxl_torch.models.factory, ptbxl_torch.ops.kernels.fused_ecgcnn\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -47,3 +49,5 @@ def test_source_imports_no_jax(path):
 def test_port_file_list_is_complete():
     assert "ptbxl_torch/inference.py" in PORT_FILES
     assert "ptbxl_torch/ops/kernels/fused_ecgcnn.py" in PORT_FILES
+    assert "ptbxl_torch/models/ecg_multimodal.py" in PORT_FILES
+    assert "ptbxl_torch/data/demo_vector.py" in PORT_FILES

@@ -19,5 +19,14 @@ def demo_signals() -> np.ndarray:
     return np.stack([np.load(f, allow_pickle=True)["ecg"] for f in files])
 
 
+def mm_demo_pack():
+    """The 7 bundled multimodal records: signals [7, 12, 5000] (z-scored) and demo [7, 5]."""
+    files = sorted(glob.glob(os.path.join(HERE, "data/demo/multimodal/*.npz")))
+    assert len(files) == 7
+    packs = [np.load(f, allow_pickle=True) for f in files]
+    return (np.stack([z["ecg"] for z in packs]),
+            np.stack([z["demo"] for z in packs]).astype(np.float32))
+
+
 def golden(name: str):
     return np.load(os.path.join(GOLD, f"golden_{name}.npz"))
