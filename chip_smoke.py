@@ -5,12 +5,14 @@
 
 Builds the hand-written kernels from ``ptbxl_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (K1 z-score, K2 ECGCNN
-forward, K3 FiLM multimodal forward), drives the main paths (``Predictor``
-on the baseline and AF checkpoints, then on the multimodal checkpoint with
-demo vectors, Grad-CAM and demo importance on both), checks them against the
-golden outputs, and times the kernels beside their plain versions, the
-framework (cuDNN) path and their bounds.  The launch counters are set to 0
-just before each main path and read just after it.  Each phase
+forward, K3 FiLM multimodal forward, K6 ReLU -> MaxPool backward), drives
+the main paths (``Predictor`` on the baseline and AF checkpoints, then on
+the multimodal checkpoint with demo vectors, Grad-CAM and demo importance on
+both, then ``train`` on the baseline ECGCNN at full width with a reload of
+its best checkpoint), checks them against the golden outputs, and times the
+kernels and the train step beside their plain versions, the framework
+(cuDNN, torch's own pool backward) path and their bounds.  The launch
+counters are set to 0 just before each main path and read just after it.  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero and prints no result.  Imports nothing of JAX or ptbxl_tpu.
@@ -19,6 +21,7 @@ non-zero and prints no result.  Imports nothing of JAX or ptbxl_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -29,6 +32,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "outputs/ecg_baseline/ckpts/ecg_baseline_best.npz")
@@ -38,6 +42,15 @@ GOLD = os.path.join(ROOT, "tests/golden")
 DEMO = os.path.join(ROOT, "data/demo/single")
 DEMO_MM = os.path.join(ROOT, "data/demo/multimodal")
 T_FULL, LEADS, BIG = 5000, 12, 512
+CLASSES = ["MI", "STTC", "HYP", "CD", "NORM"]
+# the training path: configs/ecg_baseline.yaml's batch, lr and weight decay
+TRAIN_B, TRAIN_LR, TRAIN_WD, TRAIN_EPOCHS = 64, 1.5e-3, 1e-4, 2
+TRAIN_N, VAL_N = 256, 64
+TRAIN_B_BIG = 256  # the second train-step timing batch
+EPOCH_N, VAL_EPOCH_N = 2048, 512  # the timed epoch: 32 steps at B=64; 8 val batches
+# the reference's metrics CSV header (ptbxl_tpu/utils/csv_log.py:14-25)
+CSV_HEADER = ["datetime", "run_name", "epoch", "train_bce", "val_auroc_macro",
+              "val_auprc_macro", "val_f1_macro", "val_bce_loss", "ckpt_path", "config_path"]
 
 # H100 SXM published peaks (NVIDIA data sheet): FP32 without tensor cores, HBM3.
 PEAK_FP32 = 67e12
@@ -139,7 +152,10 @@ def launch_breakdown(fn) -> list:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+    # user annotations (e.g. the optimizer's step range) sit on the device
+    # timeline too; only kernels, copies and sets are kept
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
                     key=lambda e: e.time_range.start)
     return [[e.name[:60], e.device_time_total / 1e3] for e in events]
 
@@ -147,6 +163,418 @@ def launch_breakdown(fn) -> list:
 def bound(flops: float, nbytes: float) -> tuple:
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def by_kernel(launches: list, top: int = 25) -> dict:
+    """Per-launch [name, ms] -> total ms, launch count and the ``top`` kernels by time."""
+    agg = {}
+    for name, ms in launches:
+        n, t = agg.get(name, (0, 0.0))
+        agg[name] = (n + 1, t + ms)
+    rows = sorted(([k, n, t] for k, (n, t) in agg.items()), key=lambda r: -r[2])
+    return {"total_ms": sum(r[2] for r in rows), "launches": len(launches), "top": rows[:top]}
+
+
+class RawECGSet:
+    """An in-memory training set made from a seed: raw-like [12, 5000] records
+    (noise with per-lead scale U[0.5, 2.5] and offset N(0, 1)) and 5-label
+    targets.  The trainer reads it through ``get_raw``."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.x = rng.standard_normal((n, LEADS, T_FULL), dtype=np.float32)
+        self.x *= rng.uniform(0.5, 2.5, (n, LEADS, 1)).astype(np.float32)
+        self.x += rng.standard_normal((n, LEADS, 1)).astype(np.float32)
+        self.y = (rng.uniform(size=(n, 5)) > 0.7).astype(np.float32)
+
+    def __len__(self) -> int:
+        return len(self.y)
+
+    def get_raw(self, idx: int) -> np.ndarray:
+        return self.x[idx]
+
+
+def k6_shapes(b: int) -> list:
+    """K6's inputs in one ECGCNN train step at T=5000: h [B, C, T] of each block."""
+    return [(b, 32, 5000), (b, 64, 2500), (b, 128, 1250), (b, 256, 625)]
+
+
+def k6_bytes_ops(pairs) -> tuple:
+    """Bytes K6 must move (h and g read once, dh written once in g's dtype) and
+    its operations (~8 a window: 2 relus, a max, 2 compares, a division, 2 selects)."""
+    nbytes = ops = 0
+    for h, g in pairs:
+        nbytes += (h.numel() * h.element_size() + g.numel() * g.element_size()
+                   + h.numel() * g.element_size())
+        ops += 8 * g.numel()
+    return ops, nbytes
+
+
+def phase_k6(gen: torch.Generator) -> tuple:
+    """K6 against its plain version at the four block shapes of a B=64 train step
+    (f32 and bf16), on inputs with many exact positive ties and on the tie case
+    of tests/test_relu_pool.py:60-67; and against torch's autograd of
+    relu(max_pool1d(h)).  A select and a division by 1 or 2: every gate is 0.0."""
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+
+    k6_err = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in k6_shapes(TRAIN_B):
+            h = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            g = torch.randn(*shape[:2], shape[2] // 2, generator=gen, device="cuda").to(dt)
+            name = f"{list(shape)} {str(dt)[6:]}"
+            k6_err[name] = gate(f"relu_pool_bwd {name}",
+                                max_diff(k6.relu_pool_bwd(h, g), k6.relu_pool_bwd_plain(h, g)), 0.0)
+        # many exact positive ties (quarter steps), an odd T among them
+        for shape in ((TRAIN_B, 64, 2500), (TRAIN_B, 256, 625)):
+            h = (torch.round(torch.randn(shape, generator=gen, device="cuda") * 4) / 4).to(dt)
+            g = torch.randn(*shape[:2], shape[2] // 2, generator=gen, device="cuda").to(dt)
+            name = f"{list(shape)} {str(dt)[6:]} ties"
+            k6_err[name] = gate(f"relu_pool_bwd {name}",
+                                max_diff(k6.relu_pool_bwd(h, g), k6.relu_pool_bwd_plain(h, g)), 0.0)
+    h_tie = torch.tensor([[[2.0, 2.0, 3.0, 1.0, -1.0, -2.0]]], device="cuda")
+    dh_tie = k6.relu_pool_bwd(h_tie, torch.tensor([[[4.0, 6.0, 8.0]]], device="cuda"))
+    if dh_tie[0, 0].tolist() != [2.0, 2.0, 6.0, 0.0, 0.0, 0.0]:
+        raise AssertionError(f"relu_pool_bwd tie split: {dh_tie[0, 0].tolist()}")
+    # torch's autograd of relu(max_pool1d(h)) routes a tie to its first element;
+    # away from exact positive ties the two are the same function
+    k6_autograd = {}
+    for shape in k6_shapes(TRAIN_B):
+        h = torch.randn(shape, generator=gen, device="cuda", requires_grad=True)
+        g = torch.randn(*shape[:2], shape[2] // 2, generator=gen, device="cuda")
+        (want,) = torch.autograd.grad(F.relu(F.max_pool1d(h, 2)), h, g)
+        got = k6.relu_pool_bwd(h.detach(), g)
+        e = 2 * g.shape[-1]
+        tie = (h[..., 0:e:2] == h[..., 1:e:2]) & (h[..., 0:e:2] > 0)
+        keep = torch.ones_like(got, dtype=torch.bool)
+        keep[..., :e] = ~tie.repeat_interleave(2, dim=-1)
+        k6_autograd[str(list(shape))] = {
+            "max_abs_err": gate(f"relu_pool_bwd vs autograd {list(shape)}",
+                                float((got - want).abs()[keep].max()), 0.0),
+            "tie_windows_left_out": int(tie.sum())}
+    return k6_err, k6_autograd
+
+
+def _train_batch(b: int, gen: torch.Generator, demo: bool = False) -> dict:
+    """One training batch on the card: raw [B, T, 12] signals, 5-label targets, no padding."""
+    batch = {"ecg": raw_batch(b, gen),
+             "y": (torch.rand(b, 5, generator=gen, device="cuda") > 0.7).float(),
+             "mask": torch.ones(b, device="cuda")}
+    if demo:
+        batch["demo"] = demo_batch(b, gen)
+    return batch
+
+
+def _pool_bwd(impl: str):
+    from ptbxl_torch.ops.relu_pool import force_framework_pool_bwd
+
+    return force_framework_pool_bwd() if impl == "framework" else contextlib.nullcontext()
+
+
+def phase_train(seed: int, gen: torch.Generator) -> dict:
+    """The training path: ``train(TrainRun)`` on the baseline ECGCNN at full width,
+    f32 ``highest``, with the launch counts set to 0 just before and read just
+    after; the best checkpoint reloaded; the pool backward's two engines on the
+    same three steps; one multimodal step; one bf16 epoch."""
+    import csv
+    import itertools
+    import tempfile
+
+    from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
+    from ptbxl_torch.inference import Predictor
+    from ptbxl_torch.models.factory import build_ecgcnn, build_multimodal, load_ecgcnn
+    from ptbxl_torch.ops.kernels import fused_ecgcnn as k2, relu_pool as k6, zscore as k1
+    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
+    from ptbxl_torch.training.loop import make_train_step
+    from ptbxl_torch.training.train_state import create_train_state
+    from ptbxl_torch.training.trainer import TrainRun, train
+
+    train_ds, val_ds = RawECGSet(TRAIN_N, seed), RawECGSet(VAL_N, seed + 1)
+    info = {"phase": "train", "records": {"train": TRAIN_N, "val": VAL_N}, "batch": TRAIN_B,
+            "epochs": TRAIN_EPOCHS, "lr": TRAIN_LR, "weight_decay": TRAIN_WD}
+    with tempfile.TemporaryDirectory() as out:
+        model = build_ecgcnn(num_labels=5, seed=seed)
+        snapshots = []  # (val auprc, weights) after each epoch
+
+        def progress(epoch, loss, metrics):
+            snapshots.append((float(metrics["auprc_macro"]),
+                              {k: v.clone() for k, v in model.state_dict().items()}))
+
+        run = TrainRun(model=model, train_ds=train_ds, val_ds=val_ds, batch_size=TRAIN_B,
+                       epochs=TRAIN_EPOCHS, lr=TRAIN_LR, weight_decay=TRAIN_WD, seed=seed,
+                       run_name="chip_smoke", metrics_csv=os.path.join(out, "metrics.csv"),
+                       ckpt_path=os.path.join(out, "ckpts", "best.npz"),
+                       config_path="chip_smoke.py", classes=CLASSES, progress=progress,
+                       train_desc=None, eval_desc=None)
+        k1.launches = k2.launches = k2.launches_mm = k6.launches = 0
+        t0 = time.time()
+        state = train(run)
+        torch.cuda.synchronize()
+        info["wall_s"] = time.time() - t0
+        info["launches"] = {"relu_pool_bwd": k6.launches, "zscore": k1.launches,
+                            "fused_ecgcnn": k2.launches, "fused_multimodal": k2.launches_mm}
+        info["steps"] = state.step
+        if k6.launches != 4 * state.step or state.step != TRAIN_EPOCHS * (TRAIN_N // TRAIN_B):
+            raise AssertionError(f"train path: {k6.launches} relu_pool_bwd launches for "
+                                 f"{state.step} steps (want 4 a step)")
+        with open(run.metrics_csv) as f:
+            rows = list(csv.reader(f))
+        if rows[0] != CSV_HEADER or len(rows) != 1 + TRAIN_EPOCHS:
+            raise AssertionError(f"metrics CSV: header {rows[0]}, {len(rows) - 1} rows")
+        info["csv"] = [[float(v) for v in r[3:8]] for r in rows[1:]]  # train_bce .. val_bce
+        if not np.isfinite([[r[0], r[4]] for r in info["csv"]]).all():
+            raise AssertionError(f"non-finite epoch losses {info['csv']}")
+
+        # the best checkpoint reloads as the weights of its epoch
+        best_auprc, best_sd = max(snapshots, key=lambda s: s[0])  # the first maximum
+        ref = build_ecgcnn(num_labels=5, seed=seed)
+        ref.load_state_dict(best_sd)
+        ref.eval()
+        x_val = np.stack([val_ds.get_raw(i) for i in range(16)])
+        xt = torch.from_numpy(x_val.transpose(0, 2, 1).copy()).cuda()
+        with torch.no_grad():
+            want = torch.sigmoid(ref(zscore_per_lead_batch(xt)).float()).cpu().numpy()
+            pth_model, pth_classes = load_ecgcnn(os.path.splitext(run.ckpt_path)[0] + ".pth")
+            got_pth = torch.sigmoid(pth_model(zscore_per_lead_batch(xt)).float()).cpu().numpy()
+        got_npz = Predictor.from_checkpoint(run.ckpt_path, engine="framework")(x_val)
+        if pth_classes != CLASSES:
+            raise AssertionError(f"best .pth classes {pth_classes}")
+        info["best_val_auprc"] = best_auprc
+        info["best_reload_max_abs_err"] = {
+            "npz_predictor": gate("best .npz via Predictor", float(np.abs(got_npz - want).max()),
+                                  2e-5),
+            "pth_load_ecgcnn": gate("best .pth via load_ecgcnn",
+                                    float(np.abs(got_pth - want).max()), 2e-5)}
+
+    # the pool backward's two engines on the same three steps from one init
+    src = BatchSource(train_ds, TRAIN_B, shuffle=True, seed=seed)
+    batches = list(device_prefetch(itertools.islice(src.epoch(0), 3)))
+
+    def three_steps(impl):
+        m = build_ecgcnn(num_labels=5, seed=seed)
+        st = create_train_state(m, TRAIN_LR, TRAIN_WD)
+        step = make_train_step()
+        with _pool_bwd(impl):
+            losses = [float(step(st, b)[1]) for b in batches]
+        return losses, m.state_dict()
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        loss_k, sd_k = three_steps("kernel")
+        loss_f, sd_f = three_steps("framework")
+    finally:
+        cudnn.deterministic = saved
+    rel = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss_f))
+    diffs = {k: float((sd_k[k].float() - sd_f[k].float()).abs().max()) for k in sd_k}
+    worst = max(diffs, key=diffs.get)
+    info["pool_bwd_kernel_vs_framework"] = {
+        "losses_kernel": loss_k, "losses_framework": loss_f,
+        "max_rel_loss_diff": gate("kernel vs framework step losses (rel)", rel, 1e-6),
+        "max_param_diff": diffs[worst], "max_param_diff_at": worst,
+        # a conv bias before train-mode BN has a gradient of ~0 that Adam turns
+        # into O(lr) steps; every other entry
+        "max_param_diff_but_conv_bias": max(
+            v for k, v in diffs.items() if not k.endswith("net.0.bias"))}
+
+    # one multimodal train step at full width
+    mm = build_multimodal(num_labels=5, seed=seed)
+    st = create_train_state(mm, TRAIN_LR, TRAIN_WD)
+    k6.launches = 0
+    _, loss_mm = make_train_step(multimodal=True)(st, _train_batch(TRAIN_B, gen, demo=True))
+    loss_mm = float(loss_mm)
+    if k6.launches != 4 or not np.isfinite(loss_mm):
+        raise AssertionError(f"multimodal step: loss {loss_mm}, {k6.launches} K6 launches")
+    info["multimodal_step"] = {"loss": loss_mm, "relu_pool_bwd_launches": k6.launches}
+
+    # one bf16 epoch (precision='default')
+    history = []
+    with tempfile.TemporaryDirectory() as out:
+        m16 = build_ecgcnn(num_labels=5, seed=seed, precision="default", dtype=torch.bfloat16)
+        train(TrainRun(model=m16, train_ds=train_ds, val_ds=val_ds, batch_size=TRAIN_B,
+                       epochs=1, lr=TRAIN_LR, weight_decay=TRAIN_WD, seed=seed,
+                       run_name="chip_smoke_bf16", metrics_csv=os.path.join(out, "m.csv"),
+                       ckpt_path=os.path.join(out, "best.npz"), config_path="chip_smoke.py",
+                       pth_export=False, train_desc=None, eval_desc=None,
+                       progress=lambda e, loss, m: history.append([loss, m["bce_loss"]])))
+    if not np.isfinite(history).all():
+        raise AssertionError(f"bf16 epoch losses {history}")
+    info["bf16_epoch"] = {"train_bce": history[0][0], "val_bce": history[0][1]}
+    return info
+
+
+def train_step_times(seed: int, gen: torch.Generator) -> tuple:
+    """Device time of one train step (z-score, forward, backward, AdamW) at B=64
+    and 256, f32 ``highest`` and bf16, with each pool backward (in turns: kernel,
+    framework, framework, kernel); K6's four launches of one B=64 step beside
+    their plain version, torch's own pool backward and their bound."""
+    from ptbxl_torch.models.factory import build_ecgcnn
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+    from ptbxl_torch.training.loop import make_train_step
+    from ptbxl_torch.training.train_state import create_train_state
+
+    steps = {}
+    for b in (TRAIN_B, TRAIN_B_BIG):
+        batch = _train_batch(b, gen)
+        for prec, dtype in (("highest", torch.float32), ("default", torch.bfloat16)):
+            res = {"kernel": [], "framework": []}
+            peak = {}
+            for impl in ("kernel", "framework", "framework", "kernel"):
+                m = build_ecgcnn(num_labels=5, seed=seed, precision=prec, dtype=dtype)
+                st = create_train_state(m, TRAIN_LR, TRAIN_WD)
+                step = make_train_step()
+                torch.cuda.reset_peak_memory_stats()
+                with _pool_bwd(impl):
+                    res[impl].append(time_ms(lambda: step(st, batch)))
+                peak[impl] = torch.cuda.max_memory_allocated() / 2 ** 20
+                del m, st, step
+            steps[f"B={b} {'f32' if prec == 'highest' else 'bf16'}"] = {
+                "kernel_ms": res["kernel"], "framework_ms": res["framework"],
+                "records_per_s_kernel": b / (statistics.mean(res["kernel"]) / 1e3),
+                "records_per_s_framework": b / (statistics.mean(res["framework"]) / 1e3),
+                "peak_mib": peak}
+        del batch
+
+    k6_times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        pairs = [(torch.randn(s, generator=gen, device="cuda").to(dt),
+                  torch.randn(*s[:2], s[2] // 2, generator=gen, device="cuda").to(dt))
+                 for s in k6_shapes(TRAIN_B)]
+        hs = [h.clone().requires_grad_(True) for h, _ in pairs]
+        ys = [F.relu(F.max_pool1d(h, 2)) for h in hs]  # torch's pool, argmax indices kept
+        name = str(dt)[6:]
+        k6_times[name] = {
+            "ms": time_ms(lambda: [k6.relu_pool_bwd(h, g) for h, g in pairs]),
+            "plain_ms": time_ms(lambda: [k6.relu_pool_bwd_plain(h, g) for h, g in pairs]),
+            "library_ms": time_ms(lambda: [torch.autograd.grad(y, h, g, retain_graph=True)
+                                           for y, h, (_, g) in zip(ys, hs, pairs)]),
+            "bound": bound(*k6_bytes_ops(pairs)),
+            "per_launch_ms": launch_breakdown(
+                lambda: [k6.relu_pool_bwd(h, g) for h, g in pairs]),
+        }
+        del pairs, hs, ys
+    return steps, k6_times
+
+
+def train_breakdown(seed: int, gen: torch.Generator) -> dict:
+    """Where one f32 train step's device time goes at B=64, per pool backward."""
+    from ptbxl_torch.models.factory import build_ecgcnn
+    from ptbxl_torch.training.loop import make_train_step
+    from ptbxl_torch.training.train_state import create_train_state
+
+    batch = _train_batch(TRAIN_B, gen)
+    out = {}
+    for impl in ("kernel", "framework"):
+        m = build_ecgcnn(num_labels=5, seed=seed)
+        st = create_train_state(m, TRAIN_LR, TRAIN_WD)
+        step = make_train_step()
+        with _pool_bwd(impl):
+            launches = launch_breakdown(lambda: step(st, batch))
+        agg = by_kernel(launches)
+        pool = sum(ms for name, ms in launches
+                   if "relu_pool_bwd" in name or "max_pool_backward" in name)
+        agg["pool_bwd_ms"] = pool
+        agg["pool_bwd_share"] = pool / agg["total_ms"]
+        out[impl] = agg
+    return out
+
+
+def _busy_ms(prof) -> float:
+    """Device busy time of a profiled window: the union of its kernel and copy
+    intervals over all streams (ms)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def train_epoch(seed: int) -> dict:
+    """What one training epoch costs end to end at B=64, f32 ``highest``: the
+    trainer's loop (``BatchSource`` -> ``device_prefetch`` -> ``train_one_epoch``)
+    over EPOCH_N in-memory records after a warm-up epoch, beside the host's
+    batch assembly alone, the steps' device time, the card's idle share (from a
+    profiled epoch) and the rest of a trainer epoch (a val epoch of VAL_EPOCH_N
+    records and the checkpoint writes)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
+    from ptbxl_torch.models.factory import build_ecgcnn
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+    from ptbxl_torch.training.loop import eval_one_epoch, make_eval_step, make_train_step
+    from ptbxl_torch.training.loop import train_one_epoch
+    from ptbxl_torch.training.train_state import create_train_state
+    from ptbxl_torch.training.trainer import TrainRun, _export_best, _save_resume
+
+    t0 = time.perf_counter()
+    ds, val_ds = RawECGSet(EPOCH_N, seed + 2), RawECGSet(VAL_EPOCH_N, seed + 3)
+    make_s = time.perf_counter() - t0
+    st = create_train_state(build_ecgcnn(num_labels=5, seed=seed), TRAIN_LR, TRAIN_WD)
+    step = make_train_step()
+    src = BatchSource(ds, TRAIN_B, shuffle=True, seed=seed)
+
+    def epoch(i):  # returns after the last step's loss is read: the card is done
+        return train_one_epoch(st, step, device_prefetch(src.epoch(i)))[1]
+
+    epoch(0)  # warm-up: cuDNN plans, the pinned-memory cache, the kernels' build
+    torch.cuda.synchronize()
+    k6.launches = 0
+    t0 = time.perf_counter()
+    loss = epoch(1)
+    wall_s = time.perf_counter() - t0
+    launches = k6.launches
+    t0 = time.perf_counter()
+    for _ in src.epoch(2):  # the producer's host work alone: get_raw, stack, transpose
+        pass
+    host_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch(3)
+        torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t0
+    busy_ms = _busy_ms(prof)
+    batch = next(iter(device_prefetch(src.epoch(4))))
+    step_ms = time_ms(lambda: step(st, batch))
+
+    # the rest of a trainer epoch: the val epoch and the checkpoint writes
+    val_src = BatchSource(val_ds, TRAIN_B, shuffle=False, seed=seed)
+    eval_step = make_eval_step()
+    eval_one_epoch(st, eval_step, device_prefetch(val_src.epoch(0)))
+    t0 = time.perf_counter()
+    eval_one_epoch(st, eval_step, device_prefetch(val_src.epoch(0)))
+    val_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as out:
+        run = TrainRun(model=st.model, train_ds=ds, val_ds=val_ds, batch_size=TRAIN_B,
+                       epochs=1, lr=TRAIN_LR, weight_decay=TRAIN_WD, seed=seed,
+                       run_name="chip_smoke_epoch", metrics_csv=os.path.join(out, "m.csv"),
+                       ckpt_path=os.path.join(out, "best.npz"), config_path="chip_smoke.py",
+                       classes=CLASSES)
+        t0 = time.perf_counter()
+        _export_best(run, st, 0.5)
+        _save_resume(os.path.join(out, "resume.pt"), st, 1, 0.5, 0)
+        ckpt_s = time.perf_counter() - t0
+
+    steps = src.steps_per_epoch
+    if launches != 4 * steps or not np.isfinite(loss):
+        raise AssertionError(f"timed epoch: loss {loss}, {launches} K6 launches, {steps} steps")
+    return {"phase": "train_epoch", "records": EPOCH_N, "batch": TRAIN_B, "steps": steps,
+            "precision": "highest", "dataset_make_s": make_s, "train_bce": loss,
+            "relu_pool_bwd_launches": launches,
+            "epoch_wall_s": wall_s, "records_per_s": EPOCH_N / wall_s,
+            "step_ms": step_ms, "steps_x_step_ms": steps * step_ms,
+            "host_batches_s": host_s, "host_ms_per_batch": host_s / steps * 1e3,
+            "profiled_epoch_wall_s": prof_wall_s, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / (prof_wall_s * 1e3),
+            "val_records": VAL_EPOCH_N, "val_epoch_s": val_s, "checkpoint_writes_s": ckpt_s}
 
 
 def main(argv=None) -> int:
@@ -162,7 +590,7 @@ def main(argv=None) -> int:
     from ptbxl_torch.interpret.grad_cam import GradCAM, demo_importance
     from ptbxl_torch.models.factory import load_ecgcnn, load_multimodal
     from ptbxl_torch.models.params_io import load_checkpoint
-    from ptbxl_torch.ops.kernels import _build, fused_ecgcnn as k2, zscore as k1
+    from ptbxl_torch.ops.kernels import _build, fused_ecgcnn as k2, relu_pool as k6, zscore as k1
     from ptbxl_torch.ops.preprocess import zscore_per_lead_batch_onepass
 
     dev = torch.device("cuda")
@@ -245,6 +673,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     emit({"phase": "k3", "max_abs_err": k3_err})
 
+    # -- phase 3c: K6 against its plain version and torch's autograd -----------
+    k6_err, k6_autograd = phase_k6(gen)
+    torch.cuda.synchronize()
+    emit({"phase": "k6", "max_abs_err": k6_err, "vs_autograd": k6_autograd})
+
     # -- phase 4: the main path, Predictor on the card --------------------------
     g_base = np.load(os.path.join(GOLD, "golden_baseline.npz"))
     g_af = np.load(os.path.join(GOLD, "golden_af.npz"))
@@ -315,7 +748,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"bad multimodal Predictor output {probs_mm_big.shape}")
     emit({"phase": "predictor_mm", "launches": launches_mm, "max_abs_err": mm_errs})
 
-    # -- phase 5: Grad-CAM on the card -----------------------------------------
+    # -- phase 5: Grad-CAM on the card (its backward through the pool is K6) ----
+    k6.launches = 0
     model, _ = load_ecgcnn(CKPT, strict=False)
     cam_demo = GradCAM(model, signal_length=T_FULL, norm_first=False, eps=1e-9)
     cam_lib = GradCAM(model, signal_length=T_FULL, norm_first=True)
@@ -344,7 +778,16 @@ def main(argv=None) -> int:
             "demo_importance", float(np.abs(imp.cpu().numpy() - g_mm["demo_importance"]).max()),
             1e-4),
     }
-    emit({"phase": "grad_cam_mm", "max_abs_err": cam_mm_errs})
+    torch.cuda.synchronize()
+    launches_cam = k6.launches  # the Grad-CAM path, baseline and multimodal
+    if launches_cam <= 0:
+        raise AssertionError("the Grad-CAM path launched no relu_pool_bwd kernel")
+    emit({"phase": "grad_cam_mm", "max_abs_err": cam_mm_errs,
+          "launches": {"relu_pool_bwd": launches_cam}})
+
+    # -- phase 5c: the training path, the trainer at full width ---------------
+    train_info = phase_train(args.seed, gen)
+    emit(train_info)
 
     # -- phase 6: times --------------------------------------------------------
     times = {}
@@ -417,6 +860,13 @@ def main(argv=None) -> int:
     emit({"phase": "k2_breakdown_ms", "batch": {str(b): v for b, v in breakdown.items()}})
     emit({"phase": "k3_breakdown_ms", "batch": {str(b): v for b, v in breakdown_mm.items()}})
 
+    # the train step: device time per pool backward, and K6 beside its yardsticks
+    step_times, k6_times = train_step_times(args.seed, gen)
+    emit({"phase": "train_times", "step_ms": step_times, "relu_pool_bwd": k6_times})
+    emit({"phase": "train_breakdown_ms", "batch": TRAIN_B,
+          "pool_bwd": train_breakdown(args.seed, gen)})
+    emit(train_epoch(args.seed))
+
     big = times[BIG]
     one = times[1]
     sources = {
@@ -452,6 +902,21 @@ def main(argv=None) -> int:
             entry["max_abs_err_bf16"] = err_k1_16
             entry["stats_ms"] = t5["stats_ms"]
         kernels.append(entry)
+    # K6: one B=64 train step's four launches; launches on the training path and
+    # on the Grad-CAM path (baseline + multimodal)
+    t32, t16 = k6_times["float32"], k6_times["bfloat16"]
+    k6_by_path = {"train": train_info["launches"]["relu_pool_bwd"], "grad_cam": launches_cam}
+    kernels.append({
+        "name": "relu_pool_bwd", "route": "cuda", "source": "ptbxl_torch/csrc/relu_pool.cu",
+        "replaces": "ptbxl_tpu/ops/relu_pool.py:65",
+        "launches": sum(k6_by_path.values()), "launches_by_path": k6_by_path,
+        "max_abs_err": max(v for k, v in k6_err.items() if "float32" in k),
+        "max_abs_err_bf16": max(v for k, v in k6_err.items() if "bfloat16" in k),
+        "ms": t32["ms"], "plain_ms": t32["plain_ms"], "bound_ms": t32["bound"][0],
+        "bound_by": t32["bound"][1], "library_ms": t32["library_ms"], "batch": TRAIN_B,
+        "ms_bf16": t16["ms"], "bound_ms_bf16": t16["bound"][0],
+        "library_bf16_ms": t16["library_ms"],
+    })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -33,7 +33,7 @@ import torch
 from ptbxl_torch.models.ecg_cnn import ECGCNN
 from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
 from ptbxl_torch.models.factory import merge_state
-from ptbxl_torch.models.params_io import check_arch, load_checkpoint
+from ptbxl_torch.models.params_io import load_checkpoint
 from ptbxl_torch.ops.kernels.fused_ecgcnn import (
     fold_bn_into_conv,
     fold_multimodal,
@@ -45,6 +45,7 @@ from ptbxl_torch.utils.device import DeviceLike, resolve_device
 
 KERNEL_MAX_BATCH = int(os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH", "512"))
 
+_ARCHS = ("ecgcnn", "multimodal")
 _ENGINES = ("auto", "framework", "kernel")
 _PRECISIONS = ("highest", "default")
 
@@ -68,7 +69,8 @@ class Predictor:
         device: DeviceLike = None,
     ):
         """``state_dict`` is reference-layout (``params_io.load_checkpoint``)."""
-        check_arch(arch)
+        if arch not in _ARCHS:
+            raise ValueError(f"arch must be one of {_ARCHS}, got {arch!r}")
         if data_parallel:
             raise NotImplementedError(
                 "data_parallel=True comes with multi-GPU support, ROADMAP queue 1 item 8")

@@ -10,7 +10,11 @@ parameters for 5 labels.  Submodule names follow the reference state dict
   models; the modules transpose to ``[B, C, T]`` inside for ``nn.Conv1d``.
 * ``features``/``tail`` split at the last conv's pre-activation
   (ecg_cnn.py:211-237): Grad-CAM differentiates ``tail`` with autograd.
-* MaxPool(2) floors odd lengths (T=5000 -> 2500 -> 1250 -> 625 -> 312).
+* MaxPool(2) floors odd lengths (T=5000 -> 2500 -> 1250 -> 625 -> 312);
+  ReLU -> MaxPool(2) differentiates through K6 (``ops/relu_pool.py``).
+* ``model.train()`` is JAX's ``train=True``: BatchNorm normalizes with the
+  batch statistics and updates the running ones as flax does (biased
+  variance, ``ConvBlock._train_batch_norm``).
 * ``precision='highest'`` runs f32 convs and matmuls with TF32 off;
   ``dtype=torch.bfloat16`` computes in bf16 from the f32 parameters (the
   JAX ``dtype`` attribute).
@@ -29,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ptbxl_torch.ops.relu_pool import relu_max_pool2
 from ptbxl_torch.utils.device import highest_precision
 
 PARITY_PRECISION = "highest"
@@ -104,13 +109,36 @@ class ConvBlock(nn.Module):
         y = F.conv1d(x.to(dt), conv.weight.to(dt), padding=conv.padding)
         return y + conv.bias.to(dt)[:, None]  # the bias after the rounded product, as flax
 
+    def _train_batch_norm(self, a: torch.Tensor) -> torch.Tensor:
+        """flax's train-mode BatchNorm: normalize with the batch statistics over
+        (B, T) in f32 and round once to ``a``'s dtype (one fused batch-norm
+        launch forward and one backward); the running stats move by
+        ``momentum`` towards the batch mean and the *biased* variance, as flax
+        updates them (torch's own running update stores the unbiased one).
+        The variance is torch's two-pass one where flax takes
+        ``max(0, E[a^2] - E[a]^2)``: the rounding differs, within the JAX
+        parity tests' tolerances (tests/test_torch_train_step.py)."""
+        bn = self.net[1]
+        with torch.no_grad():
+            var, mean = torch.var_mean(a.float(), dim=(0, 2), correction=0)
+            m = bn.momentum
+            bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1.0 - m) * bn.running_var + m * var)
+        return F.batch_norm(a, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
     def post(self, a: torch.Tensor) -> torch.Tensor:
         bn = self.net[1]
-        # f32 statistics and affine on a dtype input: computed in f32 and rounded
-        # once to dtype, as flax normalizes (no f32 copy of the activation)
-        h = F.batch_norm(a, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         self.training, bn.momentum, bn.eps)
-        # relu(pool(h)) == pool(relu(h)) (monotone); pool first as in JAX
+        if self.training:
+            h = self._train_batch_norm(a)
+        else:
+            # f32 statistics and affine on a dtype input: computed in f32 and
+            # rounded once to dtype, as flax normalizes (no f32 copy of the activation)
+            h = F.batch_norm(a, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             False, bn.momentum, bn.eps)
+        # relu(pool(h)) == pool(relu(h)) (monotone); pool first as in JAX; the
+        # backward is K6 (ops/relu_pool.py)
+        if self.pool == 2:
+            return relu_max_pool2(h)
         return F.relu(F.max_pool1d(h, self.pool))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -77,6 +77,29 @@ def merge_state(model: torch.nn.Module, loaded: StateDict, strict: bool) -> None
     model.load_state_dict(take, strict=False)
 
 
+def merge_backbone(model: ECGMultimodal, backbone: StateDict) -> ECGMultimodal:
+    """Warm-start the multimodal ECG encoder from a baseline checkpoint
+    (``load_checkpoint(path, arch="backbone")``), as the reference's
+    ``strict=False`` load into ``model.ecg_backbone`` (scripts/04:149-156).
+
+    Entries that the encoder has (conv blocks, ``proj``) replace its values;
+    the demo encoder, FiLM and head keep theirs.  A shape mismatch raises, as
+    torch's lenient load and the JAX ``_check_shapes`` (factory.py:170) do.
+    """
+    own = model.ecg_backbone.state_dict()
+    take = {}
+    for key, v in backbone.items():
+        if key not in own:
+            continue
+        if tuple(v.shape) != tuple(own[key].shape):
+            raise ValueError(
+                f"warm-start shape mismatch at ecg_backbone.{key}: model "
+                f"{tuple(own[key].shape)} vs checkpoint {tuple(v.shape)}")
+        take[key] = v
+    model.ecg_backbone.load_state_dict(take, strict=False)
+    return model
+
+
 def load_ecgcnn(
     ckpt_path: str,
     num_labels: int = 5,

@@ -23,6 +23,8 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.demo_inference, ptbxl_torch.interpret.plotting\n"
         "import ptbxl_torch.models.ecg_multimodal, ptbxl_torch.data.demo_vector\n"
         "import ptbxl_torch.models.factory, ptbxl_torch.ops.kernels.fused_ecgcnn\n"
+        "import ptbxl_torch.training.trainer, ptbxl_torch.data.pipeline\n"
+        "import ptbxl_torch.ops.relu_pool, ptbxl_torch.ops.kernels.relu_pool\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -51,3 +53,9 @@ def test_port_file_list_is_complete():
     assert "ptbxl_torch/ops/kernels/fused_ecgcnn.py" in PORT_FILES
     assert "ptbxl_torch/models/ecg_multimodal.py" in PORT_FILES
     assert "ptbxl_torch/data/demo_vector.py" in PORT_FILES
+    for path in ("ptbxl_torch/ops/relu_pool.py", "ptbxl_torch/ops/kernels/relu_pool.py",
+                 "ptbxl_torch/ops/adc_convert.py", "ptbxl_torch/data/pipeline.py",
+                 "ptbxl_torch/training/metrics.py", "ptbxl_torch/training/train_state.py",
+                 "ptbxl_torch/training/loop.py", "ptbxl_torch/training/trainer.py",
+                 "ptbxl_torch/utils/csv_log.py", "ptbxl_torch/utils/rng.py"):
+        assert path in PORT_FILES, path

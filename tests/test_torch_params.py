@@ -70,11 +70,18 @@ def test_load_npz_matches_jax(path):
 
 
 def test_multimodal_arch_not_ported_yet():
-    """The multimodal arch loads now; the 'backbone' warm start waits for training."""
+    """The multimodal arch loads, and so does the 'backbone' of the warm start:
+    an ECGCNN checkpoint's conv blocks and proj, without the head; an unknown
+    arch raises."""
     state, classes = load_checkpoint(CKPT_MM, arch="multimodal")
     assert "film_gen.weight" in state and classes == ["MI", "STTC", "HYP", "CD", "NORM"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        load_checkpoint(CKPT_MM, arch="backbone")
+    full, _ = load_checkpoint(CKPT)
+    bb, _ = load_checkpoint(CKPT, arch="backbone")
+    assert set(bb) == {k for k in full if not k.startswith("head.")}
+    for k, v in bb.items():
+        torch.testing.assert_close(v, full[k], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="arch"):
+        load_checkpoint(CKPT, arch="resnet")
 
 
 @pytest.mark.parametrize("path", [CKPT, CKPT_AF])

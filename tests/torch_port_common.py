@@ -30,3 +30,30 @@ def mm_demo_pack():
 
 def golden(name: str):
     return np.load(os.path.join(GOLD, f"golden_{name}.npz"))
+
+
+class InMemoryECG:
+    """A dataset held in memory, read the way both packages' BatchSource read a
+    dataset without an ADC cache: ``y`` [N, L], ``__len__`` and
+    ``get_raw(idx)`` -> raw-like [12, T] f32 (per-lead scale and offset)."""
+
+    def __init__(self, n: int, t: int, labels: int = 5, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        scale = rng.uniform(0.5, 2.5, (n, 12, 1))
+        self.x = (rng.standard_normal((n, 12, t)) * scale
+                  + rng.standard_normal((n, 12, 1))).astype(np.float32)
+        self.y = (rng.uniform(size=(n, labels)) > 0.7).astype(np.int64)
+
+    def __len__(self) -> int:
+        return len(self.y)
+
+    def get_raw(self, idx: int) -> np.ndarray:
+        return self.x[idx]
+
+
+class InMemoryECGDemo(InMemoryECG):
+    """``InMemoryECG`` with demographic vectors ``demo`` [N, 5]."""
+
+    def __init__(self, n: int, t: int, labels: int = 5, seed: int = 0):
+        super().__init__(n, t, labels, seed)
+        self.demo = np.random.default_rng(seed + 1).uniform(size=(n, 5)).astype(np.float32)
