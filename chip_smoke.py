@@ -5,13 +5,16 @@
 
 Builds the hand-written kernels from ``ptbxl_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (K1 z-score, K2 ECGCNN
-forward, K3 FiLM multimodal forward, K6 ReLU -> MaxPool backward), drives
-the main paths (``Predictor`` on the baseline and AF checkpoints, then on
-the multimodal checkpoint with demo vectors, Grad-CAM and demo importance on
-both, then ``train`` on the baseline ECGCNN at full width with a reload of
-its best checkpoint), checks them against the golden outputs, and times the
-kernels and the train step beside their plain versions, the framework
-(cuDNN, torch's own pool backward) path and their bounds.  The launch
+forward, K3 FiLM multimodal forward, K6 ReLU -> MaxPool backward, K4 hybrid
+forward, K5 wide z-score, P3 conv layer), drives the main paths
+(``Predictor`` on the baseline and AF checkpoints, then on the multimodal
+checkpoint with demo vectors, Grad-CAM and demo importance on both, then
+``train`` on the baseline ECGCNN at full width with a reload of its best
+checkpoint, then the port bench's hybrid row and the two tool probes'
+functions at their shapes), checks them against the golden outputs and the
+demo-pack parity gate, and times the kernels and the train step beside their
+plain versions, the framework (cuDNN, torch's own pool backward) path and
+their bounds.  The launch
 counters are set to 0 just before each main path and read just after it.  Each phase
 prints one JSON line; any failure raises and exits non-zero.  The last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -52,9 +55,14 @@ EPOCH_N, VAL_EPOCH_N = 2048, 512  # the timed epoch: 32 steps at B=64; 8 val bat
 CSV_HEADER = ["datetime", "run_name", "epoch", "train_bce", "val_auroc_macro",
               "val_auprc_macro", "val_f1_macro", "val_bce_loss", "ckpt_path", "config_path"]
 
-# H100 SXM published peaks (NVIDIA data sheet): FP32 without tensor cores, HBM3.
+# H100 SXM published peaks (NVIDIA data sheet): FP32 without tensor cores,
+# dense bf16 on the tensor cores, HBM3.
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+HYBRID_B = 8192  # the port bench's hybrid row (bench.py:353)
+PROBE_ZS_B = 11264  # tools/probe_zscore.py's batch
+PROBE_LAYER_B = 2048  # tools/probe_layer_perf.py's batch
 
 
 def emit(obj) -> None:
@@ -160,8 +168,8 @@ def launch_breakdown(fn) -> list:
     return [[e.name[:60], e.device_time_total / 1e3] for e in events]
 
 
-def bound(flops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple:
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -577,6 +585,150 @@ def train_epoch(seed: int) -> dict:
             "val_records": VAL_EPOCH_N, "val_epoch_s": val_s, "checkpoint_writes_s": ckpt_s}
 
 
+def phase_k4(folded, cases: dict) -> dict:
+    """K4 against its plain version: each case with the z-score on and off,
+    split 1, 2 and 3 (deep blocks Cin 32/64/128, and the tail), f32 (probs
+    2e-5) and bf16 (5e-3: the front's cuDNN bf16 conv rounds its output once
+    more than the plain version's f32 conv); and the split check."""
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4, zscore as k1
+
+    errs = {}
+    for name, xb in cases.items():
+        for normalize in (True, False):
+            xin = xb if normalize else k1.zscore_plain(xb)
+            for split in (1, 2, 3):
+                for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-3)):
+                    got = k4.hybrid_ecgcnn_probs(xin, folded, dt, normalize, split)
+                    want = torch.sigmoid(k4.hybrid_ecgcnn_logits_plain(
+                        xin, folded, split, dt, normalize))
+                    if got.shape != (xb.shape[0], 5):
+                        raise AssertionError(f"hybrid_ecgcnn B={name}: shape {tuple(got.shape)}")
+                    key = f"B={name} normalize={normalize} split={split} {str(dt)[6:]}"
+                    errs[key] = gate(f"hybrid_ecgcnn {key}", max_diff(got, want), tol)
+    for split in (0, 4):
+        try:
+            k4.hybrid_ecgcnn_logits(cases["1"], folded, split)
+        except ValueError:
+            continue
+        raise AssertionError(f"hybrid_ecgcnn took split={split} of 4 blocks")
+    return errs
+
+
+def phase_k5(x_raw: torch.Tensor, gen: torch.Generator) -> dict:
+    """K5 against its plain version and against K1: f32 at 1e-5 (the harsh
+    offset data too), bf16 in and out at 2e-2; widths 36 (on T=240, the JAX
+    test's geometry: 36 does not divide 5000*12), 240, 480, 1200; B=13 and 512
+    (13 is not a multiple of block_b)."""
+    from ptbxl_torch.ops.kernels import zscore as k1
+
+    x_harsh = raw_batch(BIG, gen, scale_lo=0.1, offset_sd=3.0)
+    data = {"raw": x_raw, "harsh": x_harsh}
+    errs = {}
+    for label, xd in data.items():
+        for width, t in ((36, 240), (240, T_FULL), (480, T_FULL), (1200, T_FULL)):
+            for b, block_b in ((13, 8), (BIG, 8), (BIG, 16)):
+                if width != 480 and block_b != 8:
+                    continue
+                xb = xd[:b, :t].contiguous()
+                for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+                    xin = xb.to(dt)
+                    got = k1.zscore_wide(xin, width=width, block_b=block_b)
+                    if got.dtype != dt or got.shape != xb.shape:
+                        raise AssertionError(f"zscore_wide: {got.dtype} {tuple(got.shape)}")
+                    key = f"{label} B={b} T={t} width={width} block_b={block_b} {str(dt)[6:]}"
+                    errs[key] = {
+                        "vs_plain": gate(f"zscore_wide {key}", max_diff(
+                            got, k1.zscore_wide_plain(xin, width=width, block_b=block_b)), tol),
+                        "vs_k1": gate(f"zscore_wide vs K1 {key}", max_diff(got, k1.zscore(xin)),
+                                      tol)}
+    return errs
+
+
+def phase_p3(gen: torch.Generator) -> dict:
+    """P3's layer in both modes against ``conv_layer_plain`` on the four layers
+    at B=16.  Gate 1e-4: bf16 products are exact in f32, so the two sides
+    differ only in the order of f32 sums of up to 1,920 products (outputs O(1))."""
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+    from ptbxl_torch.tools.probe_layer_perf import LAYERS, make_layer
+
+    errs = {}
+    for t_in, cin, cout in LAYERS + [(501, 64, 128)]:  # an odd length: the floor
+        x, w, b = make_layer(t_in, cin, cout, 16, torch.device("cuda"))
+        for mode in k4.MODES:
+            got = k4.conv_layer(x, w, b, mode)
+            want = k4.conv_layer_plain(x, w, b, mode)
+            if got.shape != (16, t_in // 2, cout):
+                raise AssertionError(f"conv_layer {mode}: shape {tuple(got.shape)}")
+            key = f"({t_in},{cin},{cout}) {mode}"
+            errs[key] = gate(f"conv_layer {key}", max_diff(got, want), 1e-4)
+    return errs
+
+
+def phase_hybrid(folded) -> dict:
+    """The main path of K4: the port bench's hybrid row (K4, bf16) at B=512 and
+    8192, its demo-pack parity against the f32 ``highest`` framework path at
+    5e-3, launches counted from 0; then the row's probs at B=8192 against K4's
+    plain version on the same batch (512 records at a time), 5e-3 as in
+    ``phase_k4``."""
+    from ptbxl_torch import bench
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+
+    dev = torch.device("cuda")
+    clock = bench.Clock(dev)
+    k4.launches = 0
+    forward = bench.build_forward("hybrid", "bf16", dev)
+    reference = bench.build_forward("framework", "f32", dev)
+    with torch.no_grad():
+        parity = bench.parity_check(forward, reference, dev)
+        rows = [bench.inference_row("hybrid", "default", "bf16", b, forward, parity, clock,
+                                    iters=10) for b in (BIG, HYBRID_B)]
+        x_big = bench._random_batch(HYBRID_B, torch.float32, dev)
+        probs = forward(x_big)
+    torch.cuda.synchronize()
+    launches = k4.launches
+    gate("hybrid demo-pack parity vs f32 highest", parity[1], bench.PARITY_TOL)
+    if launches <= 0 or not (torch.isfinite(probs).all() and probs.shape == (HYBRID_B, 5)):
+        raise AssertionError(f"hybrid row: {launches} launches, probs {tuple(probs.shape)}")
+    with torch.no_grad():
+        want = torch.cat([torch.sigmoid(k4.hybrid_ecgcnn_logits_plain(xc, folded))
+                          for xc in x_big.split(BIG)])
+    err = gate(f"hybrid_ecgcnn B={HYBRID_B} bfloat16 vs plain", max_diff(probs, want), 5e-3)
+    return {"phase": "hybrid", "launches": {"hybrid_ecgcnn": launches},
+            "rows": rows, "prob_err": parity[1], "max_abs_err_vs_plain": err}
+
+
+def phase_probes() -> tuple:
+    """The main paths of K5 and P3: the two tool probes' functions at their
+    shapes, launch counts set to 0 just before each."""
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4, zscore as k1
+    from ptbxl_torch.tools import probe_layer_perf, probe_zscore
+
+    dev = torch.device("cuda")
+    batch = probe_zscore.make_batch(PROBE_ZS_B, dev)
+    k1.launches_wide = 0
+    zs_rows = probe_zscore.run(batch, iters=10)
+    torch.cuda.synchronize()
+    zs_launches = k1.launches_wide
+    k4.launches_layer = 0
+    layer_rows = probe_layer_perf.run(PROBE_LAYER_B, dev, iters=5)
+    torch.cuda.synchronize()
+    layer_launches = k4.launches_layer
+    if zs_launches <= 0 or layer_launches <= 0:
+        raise AssertionError(f"probes launched zscore_wide {zs_launches}, "
+                             f"conv_layer {layer_launches} times")
+    return batch, zs_rows, zs_launches, layer_rows, layer_launches
+
+
+def split_breakdown(launches: list) -> dict:
+    """K4's per-launch device times split into the framework front (z-score,
+    cuDNN convs, pools, casts), each deep-block launch and the tail."""
+    deep = [ms for name, ms in launches if "tc_conv_block" in name]
+    tail = sum(ms for name, ms in launches if "tail_kernel" in name)
+    total = sum(ms for _, ms in launches)
+    return {"front_ms": total - sum(deep) - tail, "deep_block_ms": deep, "tail_ms": tail,
+            "total_ms": total, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -590,8 +742,12 @@ def main(argv=None) -> int:
     from ptbxl_torch.interpret.grad_cam import GradCAM, demo_importance
     from ptbxl_torch.models.factory import load_ecgcnn, load_multimodal
     from ptbxl_torch.models.params_io import load_checkpoint
+    from ptbxl_torch import bench as port_bench
     from ptbxl_torch.ops.kernels import _build, fused_ecgcnn as k2, relu_pool as k6, zscore as k1
-    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch_onepass
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
+    from ptbxl_torch.tools import probe_layer_perf, probe_zscore
+    from ptbxl_torch.utils.device import highest_precision
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -677,6 +833,18 @@ def main(argv=None) -> int:
     k6_err, k6_autograd = phase_k6(gen)
     torch.cuda.synchronize()
     emit({"phase": "k6", "max_abs_err": k6_err, "vs_autograd": k6_autograd})
+
+    # -- phase 3d: K4, K5 and P3 against their plain versions -------------------
+    k4_err = phase_k4(folded, {"1": x_raw[:1], "7": x_demo, str(BIG): x_raw,
+                               "5": x_raw[:5].contiguous(), "2 T=500": x_odd})
+    torch.cuda.synchronize()
+    emit({"phase": "k4", "max_abs_err": k4_err})
+    k5_err = phase_k5(x_raw, gen)
+    torch.cuda.synchronize()
+    emit({"phase": "k5", "max_abs_err": k5_err})
+    p3_err = phase_p3(gen)
+    torch.cuda.synchronize()
+    emit({"phase": "p3", "max_abs_err": p3_err})
 
     # -- phase 4: the main path, Predictor on the card --------------------------
     g_base = np.load(os.path.join(GOLD, "golden_baseline.npz"))
@@ -867,6 +1035,72 @@ def main(argv=None) -> int:
           "pool_bwd": train_breakdown(args.seed, gen)})
     emit(train_epoch(args.seed))
 
+    # -- phase 7: K4's, K5's and P3's main paths (the bench's hybrid row, the
+    # two probes), then their times beside the plain versions and the library
+    hybrid_info = phase_hybrid(folded)
+    emit(hybrid_info)
+    zs_batch, zs_rows, zs_launches, layer_rows, layer_launches = phase_probes()
+    emit({"phase": "probe_zscore", "batch": PROBE_ZS_B, "launches": {"zscore_wide": zs_launches},
+          "rows": zs_rows})
+    emit({"phase": "probe_layer_perf", "batch": PROBE_LAYER_B,
+          "launches": {"conv_layer": layer_launches}, "rows": layer_rows})
+    k4_times, k4_breakdown = {}, {}
+    lib_bf16 = port_bench.build_forward("framework", "bf16", dev)
+    k4_weights = k4.prepare_weights(folded, 2, torch.bfloat16)
+
+    def front_exact(h):
+        with highest_precision():
+            return k4._front_plain(h, folded, 2, torch.bfloat16)
+
+    with torch.no_grad():
+        for b in (BIG, HYBRID_B):
+            xb = raw_batch(b, gen)
+            run_k4 = lambda: k4.hybrid_ecgcnn_logits(xb, folded, weights=k4_weights)  # noqa: E731
+            deep_flops = sum(2 * 15 * cin * cout * 2 * (t // 2) * b
+                             for t, cin, cout in ((1250, 64, 128), (625, 128, 256)))
+            h0 = zscore_per_lead_batch(xb)
+            k4_times[b] = {
+                "ms": time_ms(run_k4, reps=5),
+                # the front as K4 runs it (cuDNN bf16 convs, bf16 out) and the
+                # exact alternative (bf16-rounded operands, f32 convs, TF32 off)
+                "front_ms": time_ms(lambda: k4._front(h0, folded, k4_weights["front"],
+                                                      torch.bfloat16), reps=5),
+                "front_exact_ms": time_ms(lambda: front_exact(h0), reps=3, warmup=1),
+                "plain_ms": time_ms(lambda: [k4.hybrid_ecgcnn_logits_plain(xc, folded)
+                                             for xc in xb.split(BIG)], reps=2, warmup=1),
+                "library_ms": time_ms(lambda: lib_bf16(xb), reps=5),
+                # the hybrid forward does the fused forward's work: K2's count
+                "bound": bound(*k2_flops_bytes(xb, folded), PEAK_BF16),
+                "deep_blocks_bound": bound(deep_flops, b * 1250 * 64 * 4, PEAK_BF16),
+            }
+            k4_breakdown[b] = split_breakdown(launch_breakdown(run_k4))
+            del xb, h0
+        k5_plain_ms = time_ms(lambda: k1.zscore_wide_plain(zs_batch, torch.bfloat16), reps=3,
+                              warmup=1)
+        # K5 and P3 against their plain versions at the probes' shapes and inputs,
+        # each variant and mode the probes launch (tolerances as in phase_k5/p3)
+        k5_want = k1.zscore_wide_plain(zs_batch, torch.bfloat16)
+        k5_probe_err = {name: gate(f"zscore_wide {name} B={PROBE_ZS_B} vs plain",
+                                   max_diff(fn(zs_batch), k5_want), 2e-2)
+                        for name, fn in probe_zscore.variants().items() if name.startswith("k5")}
+        del k5_want
+        p3_plain_ms, p3_probe_err = [], {}
+        for t_in, cin, cout in probe_layer_perf.LAYERS:
+            xl, wl, bl = probe_layer_perf.make_layer(t_in, cin, cout, PROBE_LAYER_B, dev)
+            p3_plain_ms.append(time_ms(lambda: k4.conv_layer_plain(xl, wl, bl), reps=2, warmup=1))
+            for mode in k4.MODES:
+                key = f"({t_in},{cin},{cout}) {mode}"
+                p3_probe_err[key] = gate(
+                    f"conv_layer {key} B={PROBE_LAYER_B} vs plain",
+                    max_diff(k4.conv_layer(xl, wl, bl, mode), k4.conv_layer_plain(xl, wl, bl, mode)),
+                    1e-4)
+            del xl
+    del zs_batch
+    emit({"phase": "k4_times", "batch": {str(b): v for b, v in k4_times.items()},
+          "k5_plain_ms": k5_plain_ms, "p3_plain_ms": p3_plain_ms,
+          "k5_max_abs_err_probe": k5_probe_err, "p3_max_abs_err_probe": p3_probe_err})
+    emit({"phase": "k4_breakdown_ms", "batch": {str(b): v for b, v in k4_breakdown.items()}})
+
     big = times[BIG]
     one = times[1]
     sources = {
@@ -916,6 +1150,57 @@ def main(argv=None) -> int:
         "bound_by": t32["bound"][1], "library_ms": t32["library_ms"], "batch": TRAIN_B,
         "ms_bf16": t16["ms"], "bound_ms_bf16": t16["bound"][0],
         "library_bf16_ms": t16["library_ms"],
+    })
+    # K4: the bench's hybrid row at B=8192 (B=512 beside it); launches on that row
+    t8, t5 = k4_times[HYBRID_B], k4_times[BIG]
+    kernels.append({
+        "name": "hybrid_ecgcnn", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_ecgcnn.cu",
+        "replaces": "ptbxl_tpu/ops/pallas/hybrid_ecgcnn.py:63",
+        "launches": hybrid_info["launches"]["hybrid_ecgcnn"],
+        "launches_by_path": {"bench_hybrid_row": hybrid_info["launches"]["hybrid_ecgcnn"]},
+        "max_abs_err": max(v for k, v in k4_err.items() if k.endswith("float32")),
+        "max_abs_err_bf16": max([v for k, v in k4_err.items() if k.endswith("bfloat16")]
+                                + [hybrid_info["max_abs_err_vs_plain"]]),
+        "max_abs_err_b8192": hybrid_info["max_abs_err_vs_plain"],
+        "ms": t8["ms"], "plain_ms": t8["plain_ms"], "bound_ms": t8["bound"][0],
+        "bound_by": t8["bound"][1], "library_ms": t8["library_ms"], "batch": HYBRID_B,
+        "deep_blocks_ms": sum(k4_breakdown[HYBRID_B]["deep_block_ms"]),
+        "deep_blocks_bound_ms": t8["deep_blocks_bound"][0],
+        "ms_b512": t5["ms"], "plain_ms_b512": t5["plain_ms"], "bound_ms_b512": t5["bound"][0],
+        "library_ms_b512": t5["library_ms"],
+    })
+    # K5: the probe's default variant (width 480, block_b 8), bf16 in and out
+    zs = {r["variant"]: r for r in zs_rows}
+    kernels.append({
+        "name": "zscore_wide", "route": "cuda", "source": "ptbxl_torch/csrc/zscore.cu",
+        "replaces": "ptbxl_tpu/ops/pallas/zscore.py:82",
+        "launches": zs_launches, "launches_by_path": {"probe_zscore": zs_launches},
+        "max_abs_err": max(v["vs_plain"] for k, v in k5_err.items() if k.endswith("float32")),
+        "max_abs_err_bf16": max([v["vs_plain"] for k, v in k5_err.items()
+                                 if k.endswith("bfloat16")] + list(k5_probe_err.values())),
+        "max_abs_err_probe_shape": max(k5_probe_err.values()),
+        "ms": zs["k5_b8"]["ms"], "plain_ms": k5_plain_ms, "bound_ms": zs["k5_b8"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": zs["torch_one_pass"]["ms"], "batch": PROBE_ZS_B,
+        "k1_ms": zs["k1"]["ms"], "variants_ms": {k: v["ms"] for k, v in zs.items()},
+    })
+    # P3: the four layers at the probe's batch, im2col mode (direct beside it);
+    # the bound is the sum of the layers' own, named by the larger share
+    by_ops = sum(r["bound"][0] for r in layer_rows if r["bound"][1] == "operations")
+    kernels.append({
+        "name": "conv_layer", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_ecgcnn.cu",
+        "replaces": "tools/probe_layer_perf.py:52",
+        "launches": layer_launches, "launches_by_path": {"probe_layer_perf": layer_launches},
+        "max_abs_err": max(list(p3_err.values()) + list(p3_probe_err.values())),
+        "max_abs_err_b2048": max(p3_probe_err.values()),
+        "ms": sum(r["im2col_ms"] for r in layer_rows), "plain_ms": sum(p3_plain_ms),
+        "bound_ms": sum(r["bound"][0] for r in layer_rows),
+        "bound_by": "operations" if 2 * by_ops >= sum(r["bound"][0] for r in layer_rows)
+        else "bytes",
+        "library_ms": sum(r["cudnn_ms"] for r in layer_rows), "batch": PROBE_LAYER_B,
+        "direct_ms": sum(r["direct_ms"] for r in layer_rows),
+        "per_layer": [{"layer": r["layer"], "ms": r["im2col_ms"], "direct_ms": r["direct_ms"],
+                       "plain_ms": p, "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                       "library_ms": r["cudnn_ms"]} for r, p in zip(layer_rows, p3_plain_ms)],
     })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

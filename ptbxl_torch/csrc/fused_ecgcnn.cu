@@ -38,6 +38,10 @@
 // z_ecg enters the FiLM in f32 and only z_cond is rounded, as the head's
 // operand (_dot1, :252).
 // Later work (wgmma, TMA, shared-memory-resident deep blocks) makes it fast.
+// The same conv-block kernel also serves K4's f32 deep blocks
+// (hybrid_ecgcnn.py) and, through ptbxl_conv_block_valid on a pre-padded
+// input, the "direct" mode of the P3 layer probe (tools/probe_layer_perf.py
+// make_pallas_layer, :52: 15 shifted products).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -57,13 +61,16 @@ __device__ __forceinline__ float rnd(float v) {
   return v;
 }
 
-// x [B, T, Cin] f32; stats [B, Cin, 2] (mean, std+eps) or unused;
+// x [B, Tx, Cin] f32; conv row t in [0, T) reads rows t + k - off (zero
+// outside [0, Tx)): off = 7, Tx = T is SAME padding, off = 0, Tx = T + 14 a
+// pre-padded input; stats [B, Cin, 2] (mean, std+eps) or unused;
 // w [K, Cin, Cout] BN-folded; bias [Cout]; y [B, T/2, Cout].
 template <int kCO, bool kBf16, bool kZscore>
 __global__ void __launch_bounds__(kThreads)
 conv_block_kernel(const float* __restrict__ x, const float* __restrict__ stats,
                   const float* __restrict__ w, const float* __restrict__ bias,
-                  float* __restrict__ y, int T, int Cin, int Cout, int row_tiles) {
+                  float* __restrict__ y, int Tx, int T, int off, int Cin, int Cout,
+                  int row_tiles) {
   constexpr int kNX = kCO / kColsPerThread;   // threads across channels
   constexpr int kNY = kThreads / kNX;         // threads across rows
   constexpr int kTR = kNY * kRowsPerThread;   // conv rows per block
@@ -77,7 +84,7 @@ conv_block_kernel(const float* __restrict__ x, const float* __restrict__ stats,
   const int tx = threadIdx.x % kNX;
   const int ty = threadIdx.x / kNX;
   const int r0 = ty * kRowsPerThread;
-  const float* xr = x + (long)rec * T * Cin;
+  const float* xr = x + (long)rec * Tx * Cin;
 
   float acc[kRowsPerThread][kColsPerThread];
 #pragma unroll
@@ -88,9 +95,9 @@ conv_block_kernel(const float* __restrict__ x, const float* __restrict__ stats,
   for (int c0 = 0; c0 < Cin; c0 += kCI) {
     for (int idx = threadIdx.x; idx < kInRows * kCI; idx += kThreads) {
       const int row = idx / kCI, ci = idx % kCI;
-      const int t = t0 - kPad + row, c = c0 + ci;
+      const int t = t0 - off + row, c = c0 + ci;
       float v = 0.f;
-      if (t >= 0 && t < T && c < Cin) {
+      if (t >= 0 && t < Tx && c < Cin) {
         v = xr[(long)t * Cin + c];
         if (kZscore) {
           const float* st = stats + ((long)rec * Cin + c) * 2;
@@ -240,35 +247,31 @@ __global__ void mm_tail_kernel(const float* __restrict__ h, const float* __restr
 
 template <int kCO, bool kBf16, bool kZscore>
 void launch_conv(const float* x, const float* stats, const float* w, const float* b, float* y,
-                 int B, int T, int Cin, int Cout, cudaStream_t st) {
+                 int B, int Tx, int T, int off, int Cin, int Cout, cudaStream_t st) {
   constexpr int kTR = (kThreads / (kCO / kColsPerThread)) * kRowsPerThread;
   const int conv_rows = 2 * (T / 2);
   const int row_tiles = (conv_rows + kTR - 1) / kTR;
   dim3 grid(B * row_tiles, Cout / kCO);
-  conv_block_kernel<kCO, kBf16, kZscore><<<grid, kThreads, 0, st>>>(x, stats, w, b, y, T, Cin,
-                                                                   Cout, row_tiles);
+  conv_block_kernel<kCO, kBf16, kZscore><<<grid, kThreads, 0, st>>>(x, stats, w, b, y, Tx, T,
+                                                                   off, Cin, Cout, row_tiles);
 }
 
 template <int kCO>
 void dispatch_conv(const float* x, const float* stats, const float* w, const float* b, float* y,
-                   int B, int T, int Cin, int Cout, bool bf16, cudaStream_t st) {
+                   int B, int Tx, int T, int off, int Cin, int Cout, bool bf16,
+                   cudaStream_t st) {
   if (bf16) {
-    if (stats) launch_conv<kCO, true, true>(x, stats, w, b, y, B, T, Cin, Cout, st);
-    else launch_conv<kCO, true, false>(x, stats, w, b, y, B, T, Cin, Cout, st);
+    if (stats) launch_conv<kCO, true, true>(x, stats, w, b, y, B, Tx, T, off, Cin, Cout, st);
+    else launch_conv<kCO, true, false>(x, stats, w, b, y, B, Tx, T, off, Cin, Cout, st);
   } else {
-    if (stats) launch_conv<kCO, false, true>(x, stats, w, b, y, B, T, Cin, Cout, st);
-    else launch_conv<kCO, false, false>(x, stats, w, b, y, B, T, Cin, Cout, st);
+    if (stats) launch_conv<kCO, false, true>(x, stats, w, b, y, B, Tx, T, off, Cin, Cout, st);
+    else launch_conv<kCO, false, false>(x, stats, w, b, y, B, Tx, T, off, Cin, Cout, st);
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// One conv block.  stats may be null (no z-score on load).  Cout % 32 == 0, T >= 2.
-int ptbxl_conv_block(int device, const void* x, const void* stats, const void* w,
-                     const void* b, void* y, int B, int T, int Cin, int Cout, int bf16,
-                     void* stream) {
+int conv_block(int device, const void* x, const void* stats, const void* w, const void* b,
+               void* y, int B, int Tx, int T, int off, int Cin, int Cout, int bf16,
+               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T < 2 || Cin <= 0 || Cout <= 0 || Cout % 32) return (int)cudaErrorInvalidValue;
@@ -278,9 +281,31 @@ int ptbxl_conv_block(int device, const void* x, const void* stats, const void* w
   const float* ws = static_cast<const float*>(w);
   const float* bs = static_cast<const float*>(b);
   float* ys = static_cast<float*>(y);
-  if (Cout % 64 == 0) dispatch_conv<64>(xs, ss, ws, bs, ys, B, T, Cin, Cout, bf16 != 0, st);
-  else dispatch_conv<32>(xs, ss, ws, bs, ys, B, T, Cin, Cout, bf16 != 0, st);
+  if (Cout % 64 == 0)
+    dispatch_conv<64>(xs, ss, ws, bs, ys, B, Tx, T, off, Cin, Cout, bf16 != 0, st);
+  else
+    dispatch_conv<32>(xs, ss, ws, bs, ys, B, Tx, T, off, Cin, Cout, bf16 != 0, st);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// One conv block, SAME padding.  stats may be null (no z-score on load).
+// Cout % 32 == 0, T >= 2.
+int ptbxl_conv_block(int device, const void* x, const void* stats, const void* w,
+                     const void* b, void* y, int B, int T, int Cin, int Cout, int bf16,
+                     void* stream) {
+  return conv_block(device, x, stats, w, b, y, B, T, T, kPad, Cin, Cout, bf16, stream);
+}
+
+// One conv block on a pre-padded input x [B, Tx, Cin]: conv length T = Tx - 14
+// (VALID), no z-score; y [B, T/2, Cout] (the P3 probe's "direct" layer).
+int ptbxl_conv_block_valid(int device, const void* x, const void* w, const void* b, void* y,
+                           int B, int Tx, int Cin, int Cout, int bf16, void* stream) {
+  return conv_block(device, x, nullptr, w, b, y, B, Tx, Tx - (kK - 1), 0, Cin, Cout, bf16,
+                    stream);
 }
 
 // Mean over T + proj + head.  h [B, T, C]; pw [C, F]; hw [F, L]; logits [B, L].

@@ -24,8 +24,25 @@
 // in f32) and the moments (total/T, rounded to f32 first) stay the f32
 // two-pass form of the reference; the f64 adds cost nothing in a bytes-bound
 // kernel.
+//
+// K5, ptbxl_zscore_wide, replaces zscore_pallas_wide (:107) and
+// _zscore_wide_kernel (:82): the same function on a [T*C/W, W] view of each
+// record (W % C == 0, so slot l of a row always holds lead l % C).  The TPU
+// kernel folds its per-slot sums by lead with a [W, W] 0/1 product; here the
+// fold is a segmented sum over slots in shared memory.  The view sets how a
+// block walks the record: tpr = W / VE threads cover one W-wide row, VE
+// elements each with one 16-byte (or narrower) coalesced load, and
+// 512 / tpr rows are read at a time; every thread's VE slots, and so its
+// leads, stay fixed, and it keeps one f64 partial a slot.  A block takes
+// block_b records in turn (the grid is ceil(B / block_b); the ragged last
+// group is masked, so B needs no padding).  Bound: bytes, as K1.  The three
+// passes re-read the record from L2 (a bf16 record, 120 KB, would fit in
+// shared memory, but one such block an SM leaves too few loads in flight).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -98,6 +115,153 @@ void launch(const void* x, void* out, void* stats, int B, int T, int C, cudaStre
       static_cast<const Tin*>(x), static_cast<Tout*>(out), static_cast<float*>(stats), T, C);
 }
 
+// ---- K5 ---------------------------------------------------------------------
+
+// Raw storage of VE elements of type E (the width of one load or store).
+template <typename E, int VE>
+using Raw = typename std::conditional<
+    VE * sizeof(E) == 16, uint4,
+    typename std::conditional<
+        VE * sizeof(E) == 8, uint2,
+        typename std::conditional<VE * sizeof(E) == 4, uint32_t, uint16_t>::type>::type>::type;
+
+template <typename E, int VE>
+__device__ __forceinline__ void load_vec(const E* p, float* v) {
+  const Raw<E, VE> raw = *reinterpret_cast<const Raw<E, VE>*>(p);
+  const E* e = reinterpret_cast<const E*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VE; ++i) v[i] = load_f(e, i);
+}
+
+template <typename E, int VE>
+__device__ __forceinline__ void store_vec(E* p, const float* v) {
+  Raw<E, VE> raw;
+  E* e = reinterpret_cast<E*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VE; ++i) store_f(e, i, v[i]);
+  *reinterpret_cast<Raw<E, VE>*>(p) = raw;
+}
+
+// Fold the block's per-slot partials by lead and write each slot's value of
+// fn(lead total as f32) to dst[W].  smem: red [nrow * W] doubles, lead [C] floats.
+template <int VE, typename Fn>
+__device__ __forceinline__ void fold_slots(const double* part, double* red, float* lead, float* dst, int W,
+                           int C, int nrow, int rg, int j, Fn fn) {
+#pragma unroll
+  for (int e = 0; e < VE; ++e) red[rg * W + j * VE + e] = part[e];
+  __syncthreads();
+  for (int l = threadIdx.x; l < W; l += blockDim.x) {  // over row groups, into row 0
+    double s = red[l];
+    for (int r = 1; r < nrow; ++r) s += red[r * W + l];
+    red[l] = s;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {  // over the slots of lead c
+    double s = 0.0;
+    for (int l = c; l < W; l += C) s += red[l];
+    lead[c] = fn((float)s);
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < W; l += blockDim.x) dst[l] = lead[l % C];
+  __syncthreads();
+}
+
+// x, out [B, R, W] (R = T*C / W); blockDim = nrow * (W / VE).
+template <typename Tin, typename Tout, int VE>
+__global__ void zscore_wide_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, int B,
+                                   int T, int C, int W, int block_b) {
+  extern __shared__ double wsm[];
+  const int tpr = W / VE;
+  const int nrow = blockDim.x / tpr;
+  const int rg = threadIdx.x / tpr, j = threadIdx.x % tpr;
+  const int R = (int)(((long)T * C) / W);
+  double* red = wsm;                                   // [nrow * W]
+  float* mean_s = reinterpret_cast<float*>(red + nrow * W);  // [W]: the slot's lead mean
+  float* sd_s = mean_s + W;                            // [W]: its std + eps
+  float* lead = sd_s + W;                              // [C]
+  const float tf = (float)T;
+  const int rec_end = min(B, (blockIdx.x + 1) * block_b);
+  for (int rec = blockIdx.x * block_b; rec < rec_end; ++rec) {
+    const long base = (long)rec * R * W + j * VE;
+    const Tin* xr = x + base;
+    float v[VE];
+    double part[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) part[e] = 0.0;
+    for (int r = rg; r < R; r += nrow) {
+      load_vec<Tin, VE>(xr + (long)r * W, v);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) part[e] += (double)v[e];
+    }
+    fold_slots<VE>(part, red, lead, mean_s, W, C, nrow, rg, j,
+                   [tf](float tot) { return tot / tf; });
+
+    float m[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      m[e] = mean_s[j * VE + e];
+      part[e] = 0.0;
+    }
+    for (int r = rg; r < R; r += nrow) {
+      load_vec<Tin, VE>(xr + (long)r * W, v);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) {
+        const float d = v[e] - m[e];
+        part[e] += (double)__fmul_rn(d, d);  // the f32 square of the reference, not fused
+      }
+    }
+    fold_slots<VE>(part, red, lead, sd_s, W, C, nrow, rg, j,
+                   [tf](float tot) { return sqrtf(tot / tf) + kEps; });
+
+    float sd[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) sd[e] = sd_s[j * VE + e];
+    Tout* o = out + base;
+    for (int r = rg; r < R; r += nrow) {
+      load_vec<Tin, VE>(xr + (long)r * W, v);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) v[e] = (v[e] - m[e]) / sd[e];
+      store_vec<Tout, VE>(o + (long)r * W, v);
+    }
+  }
+}
+
+template <typename Tin, typename Tout, int VE>
+cudaError_t launch_wide(const void* x, void* out, int B, int T, int C, int W, int block_b,
+                        cudaStream_t st) {
+  const int tpr = W / VE;
+  if (tpr > 1024) return cudaErrorInvalidValue;
+  const int nrow = tpr >= 512 ? 1 : 512 / tpr;
+  const size_t smem = (size_t)nrow * W * sizeof(double) + (size_t)(2 * W + C) * sizeof(float);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(zscore_wide_kernel<Tin, Tout, VE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int grid = (B + block_b - 1) / block_b;
+  zscore_wide_kernel<Tin, Tout, VE><<<grid, nrow * tpr, smem, st>>>(
+      static_cast<const Tin*>(x), static_cast<Tout*>(out), B, T, C, W, block_b);
+  return cudaGetLastError();
+}
+
+// The widest VE (elements a load) that divides W, keeps a load or store at
+// most 16 bytes and matches the pointers' alignment.
+template <typename Tin, typename Tout>
+cudaError_t dispatch_wide(const void* x, void* out, int B, int T, int C, int W, int block_b,
+                          cudaStream_t st) {
+  const size_t elt = sizeof(Tin) > sizeof(Tout) ? sizeof(Tin) : sizeof(Tout);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
+  auto ok = [&](int ve) {
+    return W % ve == 0 && ve * elt <= 16 && addr % (ve * sizeof(Tin)) == 0 &&
+           reinterpret_cast<uintptr_t>(out) % (ve * sizeof(Tout)) == 0;
+  };
+  if (elt == 2 && ok(8)) return launch_wide<Tin, Tout, 8>(x, out, B, T, C, W, block_b, st);
+  if (ok(4)) return launch_wide<Tin, Tout, 4>(x, out, B, T, C, W, block_b, st);
+  if (ok(2)) return launch_wide<Tin, Tout, 2>(x, out, B, T, C, W, block_b, st);
+  return launch_wide<Tin, Tout, 1>(x, out, B, T, C, W, block_b, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -126,6 +290,24 @@ int ptbxl_zscore_stats(int device, const void* x, void* stats, int B, int T, int
   if (in_bf16) launch<__nv_bfloat16, float, true>(x, nullptr, stats, B, T, C, st);
   else launch<float, float, true>(x, nullptr, stats, B, T, C, st);
   return (int)cudaGetLastError();
+}
+
+// K5: x [B, T, C] viewed as [B, T*C/W, W] (W divides T*C, W % C == 0) -> out,
+// block_b records a block.
+int ptbxl_zscore_wide(int device, const void* x, void* out, int B, int T, int C, int W,
+                      int block_b, int in_bf16, int out_bf16, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || T <= 0 || C <= 0 || W <= 0 || W % C || ((long)T * C) % W || block_b <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!in_bf16 && !out_bf16) err = dispatch_wide<float, float>(x, out, B, T, C, W, block_b, st);
+  else if (!in_bf16)
+    err = dispatch_wide<float, __nv_bfloat16>(x, out, B, T, C, W, block_b, st);
+  else if (!out_bf16)
+    err = dispatch_wide<__nv_bfloat16, float>(x, out, B, T, C, W, block_b, st);
+  else err = dispatch_wide<__nv_bfloat16, __nv_bfloat16>(x, out, B, T, C, W, block_b, st);
+  return (int)err;
 }
 
 const char* ptbxl_strerror(int err) { return cudaGetErrorString((cudaError_t)err); }

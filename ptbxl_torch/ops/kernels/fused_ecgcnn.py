@@ -51,6 +51,8 @@ _I, _P = _build.INT, _build.VOIDP
 _SIGNATURES = {
     # device, x, stats, w, b, y, B, T, Cin, Cout, bf16, stream
     "ptbxl_conv_block": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x, w, b, y, B, Tx, Cin, Cout, bf16, stream (pre-padded x, P3's direct layer)
+    "ptbxl_conv_block_valid": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # device, h, pw, pb, hw, hb, logits, B, T, C, F, L, bf16, stream
     "ptbxl_tail": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # device, h, pw, pb, fc1_w, fc1_b, fc2_w, fc2_b, film_w, film_b, hw, hb, demo, logits,

@@ -25,6 +25,8 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.models.factory, ptbxl_torch.ops.kernels.fused_ecgcnn\n"
         "import ptbxl_torch.training.trainer, ptbxl_torch.data.pipeline\n"
         "import ptbxl_torch.ops.relu_pool, ptbxl_torch.ops.kernels.relu_pool\n"
+        "import ptbxl_torch.bench, ptbxl_torch.ops.kernels.hybrid_ecgcnn\n"
+        "import ptbxl_torch.tools.probe_zscore, ptbxl_torch.tools.probe_layer_perf\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -57,5 +59,7 @@ def test_port_file_list_is_complete():
                  "ptbxl_torch/ops/adc_convert.py", "ptbxl_torch/data/pipeline.py",
                  "ptbxl_torch/training/metrics.py", "ptbxl_torch/training/train_state.py",
                  "ptbxl_torch/training/loop.py", "ptbxl_torch/training/trainer.py",
-                 "ptbxl_torch/utils/csv_log.py", "ptbxl_torch/utils/rng.py"):
+                 "ptbxl_torch/utils/csv_log.py", "ptbxl_torch/utils/rng.py",
+                 "ptbxl_torch/bench.py", "ptbxl_torch/ops/kernels/hybrid_ecgcnn.py",
+                 "ptbxl_torch/tools/probe_zscore.py", "ptbxl_torch/tools/probe_layer_perf.py"):
         assert path in PORT_FILES, path
