@@ -6,19 +6,21 @@
 Builds the hand-written kernels from ``ptbxl_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (K1 z-score, K2 ECGCNN
 forward, K3 FiLM multimodal forward, K6 ReLU -> MaxPool backward, K4 hybrid
-forward, K5 wide z-score, P3 conv layer), drives the main paths
-(``Predictor`` on the baseline and AF checkpoints, then on the multimodal
-checkpoint with demo vectors, Grad-CAM and demo importance on both, then
-``train`` on the baseline ECGCNN at full width with a reload of its best
-checkpoint, then the port bench's hybrid row and the two tool probes'
-functions at their shapes), checks them against the golden outputs and the
-demo-pack parity gate, and times the kernels and the train step beside their
-plain versions, the framework (cuDNN, torch's own pool backward) path and
-their bounds.  The launch
-counters are set to 0 just before each main path and read just after it.  Each phase
-prints one JSON line; any failure raises and exits non-zero.  The last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
-non-zero and prints no result.  Imports nothing of JAX or ptbxl_tpu.
+forward, K5 wide z-score, P3 and P4 conv layers, the 13 P1/P2 probes), drives
+the main paths (``Predictor`` on the baseline and AF checkpoints, then on the
+multimodal checkpoint with demo vectors, Grad-CAM and demo importance on both,
+then ``train`` on the baseline ECGCNN at full width with a reload of its best
+checkpoint, then the port bench's hybrid row and the tool probes' functions at
+their shapes, then the PTB-XL data layer, CLIs 03-08 and 12 and the bench's
+pipeline rows on a synthetic PTB-XL tree of [12, 5000] records made under
+``build/``), checks them against the golden outputs, the demo-pack parity gate,
+the JAX scripts' CSV schemas and ``Predictor``, and times the kernels, the
+train step and the epoch beside their plain versions, the framework (cuDNN,
+torch's own pool backward) path and their bounds.  The launch counters are set
+to 0 just before each main path and read just after it.  Each phase prints one
+JSON line; any failure raises and exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero and
+prints no result.  Imports nothing of JAX or ptbxl_tpu.
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 HYBRID_B = 8192  # the port bench's hybrid row (bench.py:353)
 PROBE_ZS_B = 11264  # tools/probe_zscore.py's batch
-PROBE_LAYER_B = 2048  # tools/probe_layer_perf.py's batch
+PROBE_LAYER_B = 2048  # tools/probe_layer_perf.py's and tools/probe_sublane_conv.py's batch
+DATA_N = 1024  # records of the synthetic PTB-XL tree the data, CLI phases read
 
 
 def emit(obj) -> None:
@@ -504,13 +507,15 @@ def _busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def train_epoch(seed: int) -> dict:
+def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -> dict:
     """What one training epoch costs end to end at B=64, f32 ``highest``: the
     trainer's loop (``BatchSource`` -> ``device_prefetch`` -> ``train_one_epoch``)
     over EPOCH_N in-memory records after a warm-up epoch, beside the host's
     batch assembly alone, the steps' device time, the card's idle share (from a
     profiled epoch) and the rest of a trainer epoch (a val epoch of VAL_EPOCH_N
-    records and the checkpoint writes)."""
+    records and the checkpoint writes).  ``datasets`` = (train, val, make_s):
+    PTB-XL datasets read as the trainer reads them (the ADC cache, int16
+    batches converted on the card) in place of the in-memory records."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -523,12 +528,15 @@ def train_epoch(seed: int) -> dict:
     from ptbxl_torch.training.train_state import create_train_state
     from ptbxl_torch.training.trainer import TrainRun, _export_best, _save_resume
 
-    t0 = time.perf_counter()
-    ds, val_ds = RawECGSet(EPOCH_N, seed + 2), RawECGSet(VAL_EPOCH_N, seed + 3)
-    make_s = time.perf_counter() - t0
+    if datasets is None:
+        t0 = time.perf_counter()
+        ds, val_ds = RawECGSet(EPOCH_N, seed + 2), RawECGSet(VAL_EPOCH_N, seed + 3)
+        make_s = time.perf_counter() - t0
+    else:
+        ds, val_ds, make_s = datasets
     st = create_train_state(build_ecgcnn(num_labels=5, seed=seed), TRAIN_LR, TRAIN_WD)
     step = make_train_step()
-    src = BatchSource(ds, TRAIN_B, shuffle=True, seed=seed)
+    src = BatchSource(ds, TRAIN_B, shuffle=True, seed=seed, emit_adc=True)
 
     def epoch(i):  # returns after the last step's loss is read: the card is done
         return train_one_epoch(st, step, device_prefetch(src.epoch(i)))[1]
@@ -541,8 +549,8 @@ def train_epoch(seed: int) -> dict:
     wall_s = time.perf_counter() - t0
     launches = k6.launches
     t0 = time.perf_counter()
-    for _ in src.epoch(2):  # the producer's host work alone: get_raw, stack, transpose
-        pass
+    for _ in src.epoch(2):  # the producer's host work alone (get_raw, stack, transpose;
+        pass                # or the int16 row gather from the ADC cache)
     host_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -554,7 +562,7 @@ def train_epoch(seed: int) -> dict:
     step_ms = time_ms(lambda: step(st, batch))
 
     # the rest of a trainer epoch: the val epoch and the checkpoint writes
-    val_src = BatchSource(val_ds, TRAIN_B, shuffle=False, seed=seed)
+    val_src = BatchSource(val_ds, TRAIN_B, shuffle=False, seed=seed, emit_adc=True)
     eval_step = make_eval_step()
     eval_one_epoch(st, eval_step, device_prefetch(val_src.epoch(0)))
     t0 = time.perf_counter()
@@ -574,15 +582,16 @@ def train_epoch(seed: int) -> dict:
     steps = src.steps_per_epoch
     if launches != 4 * steps or not np.isfinite(loss):
         raise AssertionError(f"timed epoch: loss {loss}, {launches} K6 launches, {steps} steps")
-    return {"phase": "train_epoch", "records": EPOCH_N, "batch": TRAIN_B, "steps": steps,
+    return {"phase": phase, "records": len(ds), "batch": TRAIN_B, "steps": steps,
+            "reader": src.reader, "emit_adc": src.emit_adc,
             "precision": "highest", "dataset_make_s": make_s, "train_bce": loss,
             "relu_pool_bwd_launches": launches,
-            "epoch_wall_s": wall_s, "records_per_s": EPOCH_N / wall_s,
+            "epoch_wall_s": wall_s, "records_per_s": len(ds) / wall_s,
             "step_ms": step_ms, "steps_x_step_ms": steps * step_ms,
             "host_batches_s": host_s, "host_ms_per_batch": host_s / steps * 1e3,
             "profiled_epoch_wall_s": prof_wall_s, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / (prof_wall_s * 1e3),
-            "val_records": VAL_EPOCH_N, "val_epoch_s": val_s, "checkpoint_writes_s": ckpt_s}
+            "val_records": len(val_ds), "val_epoch_s": val_s, "checkpoint_writes_s": ckpt_s}
 
 
 def phase_k4(folded, cases: dict) -> dict:
@@ -717,6 +726,341 @@ def phase_probes() -> tuple:
         raise AssertionError(f"probes launched zscore_wide {zs_launches}, "
                              f"conv_layer {layer_launches} times")
     return batch, zs_rows, zs_launches, layer_rows, layer_launches
+
+
+def phase_p4(gen: torch.Generator) -> dict:
+    """P4 against its plain version: the four layers at B=3 on T=300 and 301
+    (an odd length: the floor), both output layouts; then at the probe's
+    shapes at B=2048 (``transpose_out``, the probe's layout).  Gate 1e-4, as
+    P3: the same bf16 products, f32 sums in another order.  Then P4's main
+    path, the probe at B=2048, launches counted from 0, with each layer's
+    plain-version time."""
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+    from ptbxl_torch.tools import probe_sublane_conv as psc
+
+    dev = torch.device("cuda")
+    errs = {}
+    for t_in, _, cout, cpad in psc.LAYERS:
+        for t in (300, 301):
+            x, w, b = psc.make_layer(t, cout, cpad, 3, dev)
+            for tr in (True, False):
+                got, want = k4.conv_layer_cf(x, w, b, tr), k4.conv_layer_cf_plain(x, w, b, tr)
+                shape = (3, cout, t // 2) if tr else (3, t // 2, cout)
+                if tuple(got.shape) != shape:
+                    raise AssertionError(f"conv_layer_cf: shape {tuple(got.shape)} != {shape}")
+                key = f"({t},{cpad},{cout}) transpose_out={tr}"
+                errs[key] = gate(f"conv_layer_cf {key}", max_diff(got, want), 1e-4)
+    big_errs, plain_ms = {}, []
+    with torch.no_grad():
+        for t_in, _, cout, cpad in psc.LAYERS:
+            x, w, b = psc.make_layer(t_in, cout, cpad, PROBE_LAYER_B, dev)
+            key = f"({t_in},{cpad},{cout})"
+            big_errs[key] = gate(f"conv_layer_cf {key} B={PROBE_LAYER_B}",
+                                 max_diff(k4.conv_layer_cf(x, w, b), k4.conv_layer_cf_plain(x, w, b)),
+                                 1e-4)
+            plain_ms.append(time_ms(lambda: k4.conv_layer_cf_plain(x, w, b), reps=2, warmup=1))
+            del x
+    k4.launches_layer_cf = 0
+    rows = psc.run(PROBE_LAYER_B, dev, iters=5)
+    torch.cuda.synchronize()
+    launches = k4.launches_layer_cf
+    if launches <= 0:
+        raise AssertionError("the P4 probe launched no conv_layer_cf kernel")
+    return {"phase": "p4", "max_abs_err": errs, "max_abs_err_b2048": big_errs,
+            "launches": {"conv_layer_cf": launches}, "batch": PROBE_LAYER_B, "rows": rows,
+            "plain_ms": plain_ms}
+
+
+def phase_probe_tables() -> dict:
+    """P1's and P2's main paths: the two probe tools' tables (13 probes) at the
+    JAX tools' shapes, launch counts set to 0 just before each; every probe
+    must pass its gate against its plain version."""
+    from ptbxl_torch.ops.kernels import probes as kp
+    from ptbxl_torch.tools import probe_mosaic, probe_mosaic2
+
+    dev = torch.device("cuda")
+    out = {"phase": "probes", "tables": {}, "launches": {}}
+    for name, probes in (("probe_mosaic", probe_mosaic.PROBES),
+                         ("probe_mosaic2", probe_mosaic2.PROBES)):
+        kp.launches = 0
+        rows = probe_mosaic.run(probes, dev, iters=20)
+        torch.cuda.synchronize()
+        out["launches"][name] = kp.launches
+        out["tables"][name] = rows
+        for r in rows:
+            print(probe_mosaic.line(r, True) if "error" not in r else
+                  f"[FAIL] {r['label']}: {r['error']}", flush=True)
+        bad = [r["probe"] for r in rows if not r["ok"]]
+        if bad or kp.launches <= 0:
+            raise AssertionError(f"{name}: probes {bad} missed their gates "
+                                 f"({kp.launches} launches)")
+    return out
+
+
+def phase_data(root: str) -> tuple:
+    """The data layer on a synthetic tree at the real record shape: the three
+    datasets, the manifest's drop of the record with no .dat, the ADC cache
+    built by the native decoder, and the int16 path (``emit_adc``) through
+    ``device_prefetch`` against the f32 path on the card, bit for bit with
+    NaN positions (sentinels written into a copy of a batch).  Returns
+    (info, the train and val datasets, their construction seconds)."""
+    import shutil
+
+    from ptbxl_torch.data import PTBXLAFDataset, PTBXLDataset, PTBXLECGMultimodalDataset
+    from ptbxl_torch.data.manifest import CACHE_DIRNAME, ValidityManifest
+    from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
+    from ptbxl_torch.io import native
+    from ptbxl_torch.ops.adc_convert import adc_lt_to_physical_batch
+
+    if not native.available():
+        raise AssertionError(f"native WFDB decoder did not build: {native.build_error()}")
+    shutil.rmtree(os.path.join(root, CACHE_DIRNAME), ignore_errors=True)
+    t0 = time.perf_counter()
+    sets = {split: PTBXLDataset(root, split, CLASSES) for split in ("train", "val", "test")}
+    make_s = time.perf_counter() - t0
+    mm = {split: PTBXLECGMultimodalDataset(root, split, CLASSES) for split in ("train", "test")}
+    af = PTBXLAFDataset(root, "test")
+    missing = "records500/00000/00006_hr"  # the tree's record with no .dat (train fold)
+    if ValidityManifest(root).is_valid(missing) or missing in sets["train"].df["filename_hr"]:
+        raise AssertionError("the manifest kept the record with no .dat")
+    if sets["train"]._num_total - sets["train"]._num_valid != 1:
+        raise AssertionError(f"train split dropped {sets['train']._num_total - len(sets['train'])}")
+    if len(mm["train"]) != len(sets["train"]) - 1:  # record 4: no age
+        raise AssertionError("the multimodal dataset did not drop the row with no age")
+
+    t0 = time.perf_counter()
+    src16 = BatchSource(sets["val"], TRAIN_B, shuffle=False, emit_adc=True)
+    cache_s = time.perf_counter() - t0
+    decoder = src16._cache.decoder
+    if src16.reader != "adc_cache" or decoder != "native":
+        raise AssertionError(f"reader {src16.reader}, cache decoder {decoder}")
+    src32 = BatchSource(sets["val"], TRAIN_B, shuffle=False)
+    equal = 0
+    for b16, b32 in zip(device_prefetch(src16.epoch(0)), device_prefetch(src32.epoch(0))):
+        same_nan = torch.equal(b16["ecg"].isnan(), b32["ecg"].isnan())
+        if not (same_nan and torch.equal(b16["ecg"].nan_to_num(), b32["ecg"].nan_to_num())):
+            raise AssertionError("emit_adc batch != f32 batch on the card")
+        equal += 1
+    # the sentinel: -32768 written into a copy of an int16 batch, converted on
+    # the card and on the host by the cache's own formula
+    hb = next(src16.epoch(0))
+    adc = hb["adc_lt"].copy()
+    adc[:, 3, ::97] = -32768
+    host = (adc.astype(np.float32) - hb["baseline"][:, :, None]) / hb["gain"][:, :, None]
+    host[adc == -32768] = np.nan
+    dev_phys = adc_lt_to_physical_batch(torch.from_numpy(adc).cuda(),
+                                        torch.from_numpy(hb["gain"]).cuda(),
+                                        torch.from_numpy(hb["baseline"]).cuda()).cpu()
+    want = torch.from_numpy(np.ascontiguousarray(host.transpose(0, 2, 1)))
+    nan_pos = int(want.isnan().sum())
+    if not (torch.equal(dev_phys.isnan(), want.isnan())
+            and torch.equal(dev_phys.nan_to_num(), want.nan_to_num())):
+        raise AssertionError("ADC conversion on the card != host float path with sentinels")
+    info = {"phase": "data", "root": root, "reader": src16.reader, "cache_decoder": decoder,
+            "native_available": native.available(), "cache_build_s": cache_s,
+            "datasets_s": make_s,
+            "sizes": {f"PTBXLDataset/{k}": len(v) for k, v in sets.items()}
+            | {f"PTBXLECGMultimodalDataset/{k}": len(v) for k, v in mm.items()}
+            | {"PTBXLAFDataset/test": len(af)},
+            "emit_adc_equal_batches": equal, "sentinel_nans_checked": nan_pos,
+            "max_abs_err_emit_adc_vs_f32": 0.0}
+    return info, (sets["train"], sets["val"], make_s)
+
+
+def _cli_config(path: str, root: str, out_dir: str, epochs: int, extra: str = "") -> str:
+    with open(path, "w") as f:
+        f.write(f"""seed: 42
+data:
+  base_dir: {root}
+  normalize: per_lead
+  labels: ["MI", "STTC", "HYP", "CD", "NORM"]
+train:
+  batch_size: {TRAIN_B}
+  epochs: {epochs}
+  lr: {TRAIN_LR}
+  weight_decay: {TRAIN_WD}
+  early_stop_patience: 8
+{extra}log:
+  out_dir: {out_dir}
+""")
+    return path
+
+
+def _run_cli(main, argv) -> tuple:
+    """Run a CLI's ``main(argv)`` in-process; (its return, its stdout), the
+    stdout echoed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return ret, text
+
+
+def phase_cli_train(root: str, work: str, seed: int, datasets: tuple) -> dict:
+    """CLIs 03, 04 and 05 on the tree at full width, batch 64: 03 for two
+    epochs (K6 launches counted from 0), its CSV, checkpoints and losses
+    checked; 04 for one epoch warm-started from 03's checkpoint; 05 for one.
+    Then the epoch measured as ``train_epoch`` measures it, on this tree (the
+    ``train_epoch`` phase of the same run gives the in-memory epoch beside it)."""
+    import csv
+
+    from ptbxl_torch.cli import train_af_binary, train_ecg_baseline, train_multimodal_prototype
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+
+    out = os.path.join(work, "outputs")
+    cfg = _cli_config(os.path.join(work, "bl.yaml"), root, out, TRAIN_EPOCHS,
+                      "model:\n  ecg:\n    in_leads: 12\n    feat_dim: 256\n")
+    k6.launches = 0
+    t0 = time.perf_counter()
+    state, text = _run_cli(train_ecg_baseline.main, ["--config", cfg])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k6.launches
+    run_dir = os.path.join(out, "ecg_baseline")
+    ckpt = os.path.join(run_dir, "ckpts", "ecg_baseline_best.npz")
+    with open(os.path.join(run_dir, "logs", "metrics_ecg_baseline.csv")) as f:
+        rows = list(csv.reader(f))
+    losses = [[float(v) for v in r[3:8]] for r in rows[1:]]
+    if (rows[0] != CSV_HEADER or len(rows) != 1 + TRAIN_EPOCHS
+            or not np.isfinite([[r[0], r[4]] for r in losses]).all()):
+        raise AssertionError(f"03 metrics CSV: {rows[:3]}")
+    for path in (ckpt, os.path.splitext(ckpt)[0] + ".pth"):
+        if not os.path.exists(path):
+            raise AssertionError(f"03 wrote no {path}")
+    for want in ("Train BCE:", "★ New best AUPRC:"):
+        if want not in text:
+            raise AssertionError(f"03 printed no {want!r}")
+    if launches != 4 * state.step or launches <= 0:
+        raise AssertionError(f"03: {launches} relu_pool_bwd launches for {state.step} steps")
+    info = {"phase": "cli_train", "train_ecg_baseline": {
+        "wall_s": wall, "epochs": TRAIN_EPOCHS, "steps": state.step, "csv": losses,
+        "relu_pool_bwd_launches": launches}}
+
+    mm_cfg = _cli_config(os.path.join(work, "mm.yaml"), root, os.path.join(out, "ecg_multimodal"),
+                         1, "model:\n  ecg_multimodal:\n    in_leads: 12\n    ecg_feat_dim: 256\n"
+                            f"    demo_hidden_dim: 64\n    pretrained_ecg_ckpt: {ckpt}\n")
+    t0 = time.perf_counter()
+    _, text = _run_cli(train_multimodal_prototype.main, ["--config", mm_cfg])
+    mm_dir = os.path.join(out, "ecg_multimodal")
+    with open(os.path.join(mm_dir, "logs", "metrics_ecg_multimodal.csv")) as f:
+        mm_rows = list(csv.reader(f))
+    if ("Loading pretrained ECG encoder" not in text or "Train-ECG-MM BCE:" not in text
+            or len(mm_rows) != 2 or not np.isfinite(float(mm_rows[1][3]))
+            or not os.path.exists(os.path.join(mm_dir, "ckpts", "ecg_multimodal_best.npz"))):
+        raise AssertionError(f"04: CSV {mm_rows}")
+    info["train_multimodal_prototype"] = {"wall_s": time.perf_counter() - t0,
+                                          "train_bce": float(mm_rows[1][3]), "warm_start": ckpt}
+    af_cfg = _cli_config(os.path.join(work, "af.yaml"), root, os.path.join(out, "af_binary"), 1)
+    t0 = time.perf_counter()
+    _run_cli(train_af_binary.main, ["--config", af_cfg])
+    af_dir = os.path.join(out, "af_binary")
+    with open(os.path.join(af_dir, "logs", "metrics_af_binary.csv")) as f:
+        af_rows = list(csv.reader(f))
+    if len(af_rows) != 2 or not os.path.exists(os.path.join(af_dir, "ckpts", "af_binary_best.npz")):
+        raise AssertionError(f"05: CSV {af_rows}")
+    info["train_af_binary"] = {"wall_s": time.perf_counter() - t0,
+                               "train_bce": float(af_rows[1][3])}
+    epoch = train_epoch(seed, datasets, phase="cli_train_epoch")
+    info["epoch"] = {k: epoch[k] for k in (
+        "records", "steps", "reader", "emit_adc", "epoch_wall_s", "records_per_s", "step_ms",
+        "host_ms_per_batch", "idle_share", "device_busy_ms", "profiled_epoch_wall_s")}
+    return info
+
+
+def _csv_columns(path: str) -> dict:
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return {name: [r[i] for r in rows[1:]] for i, name in enumerate(rows[0])}
+
+
+def phase_cli_eval(root: str, work: str) -> dict:
+    """CLIs 06, 07 and 08 on the committed checkpoints over the tree's test
+    split: the CSV columns, y_true against the labels, y_pred against y_prob
+    at 0.5, y_prob against ``Predictor(engine="framework", precision=
+    "highest")`` on the same raw records (2e-5); then 12 on the multimodal
+    checkpoint, its CAM ``.npy`` against ``GradCAM`` on the same record (2e-3)."""
+    from ptbxl_torch.cli import af_binary_test, ecg_baseline_test, ecg_multimodal_test
+    from ptbxl_torch.cli import grad_cam_ecg_demo
+    from ptbxl_torch.data import PTBXLAFDataset, PTBXLDataset, PTBXLECGMultimodalDataset
+    from ptbxl_torch.inference import Predictor
+    from ptbxl_torch.interpret.grad_cam import GradCAM
+    from ptbxl_torch.models.factory import load_multimodal
+
+    out = {"phase": "cli_eval"}
+    cfg = _cli_config(os.path.join(work, "eval.yaml"), root, os.path.join(work, "eval_out"), 1)
+    cases = (
+        ("ecg_baseline_test", ecg_baseline_test, CKPT, PTBXLDataset(root, "test", CLASSES),
+         [(f"y_true_{c}", f"y_prob_{c}", f"y_pred_{c}") for c in CLASSES], {}),
+        ("ecg_multimodal_test", ecg_multimodal_test, CKPT_MM,
+         PTBXLECGMultimodalDataset(root, "test", CLASSES),
+         [(f"y_true_{c}", f"y_prob_{c}_mm", f"y_pred_{c}_mm") for c in CLASSES],
+         {"arch": "multimodal"}),
+        ("af_binary_test", af_binary_test, CKPT_AF, PTBXLAFDataset(root, "test"),
+         [("y_true_AF", "y_prob_AF", "y_pred_AF")], {"num_labels": 1}),
+    )
+    for name, mod, ckpt, ds, triples, kw in cases:
+        csv_path = os.path.join(work, f"{name}.csv")
+        _run_cli(mod.main, ["--config", cfg, "--ckpt", ckpt, "--out_csv", csv_path])
+        cols = _csv_columns(csv_path)
+        if list(cols) != [c for t in triples for c in t]:
+            raise AssertionError(f"{name}: CSV columns {list(cols)}")
+        sigs = np.stack([ds.get_raw(i) for i in range(len(ds))])
+        demo = {"demo": ds.demo} if kw.get("arch") == "multimodal" else {}
+        want = Predictor.from_checkpoint(ckpt, engine="framework", precision="highest",
+                                         **kw)(sigs, **demo)
+        errs = []
+        for j, (ct, cp, cd) in enumerate(triples):
+            prob = np.array(cols[cp], np.float64)
+            if (np.array(cols[ct], int) != ds.y[:, j]).any() or \
+                    (np.array(cols[cd], int) != (prob >= 0.5)).any():
+                raise AssertionError(f"{name}: {ct}/{cd} disagree with labels / probs")
+            errs.append(float(np.abs(prob - want[:, j]).max()))
+        out[name] = {"records": len(ds), "max_abs_err_vs_predictor": gate(
+            f"{name} y_prob vs Predictor", max(errs), 2e-5)}
+
+    ds = cases[1][3]
+    idx = min(10, len(ds) - 1)
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI writes outputs/gradcam_multimodal/ under the working directory
+    try:
+        (cam_path, importance), _ = _run_cli(grad_cam_ecg_demo.main, [
+            "--config", cfg, "--ckpt", CKPT_MM, "--index", str(idx)])
+        cam_path = os.path.join(work, cam_path)
+    finally:
+        os.chdir(cwd)
+    model, _ = load_multimodal(CKPT_MM, strict=False)
+    x_ecg, x_demo, _ = ds[idx]
+    _, cam = GradCAM(model, signal_length=x_ecg.shape[-1], norm_first=False, eps=1e-8,
+                     multimodal=True)(x_ecg.T[None].copy(), 0, x_demo=x_demo[None])
+    out["grad_cam_ecg_demo"] = {
+        "index": idx, "cam_file": os.path.basename(cam_path),
+        "max_abs_err_vs_grad_cam": gate("12 CAM vs GradCAM", float(np.abs(
+            np.load(cam_path) - cam[0].cpu().numpy()).max()), 2e-3),
+        "importance": [float(v) for v in importance]}
+    return out
+
+
+def phase_pipeline() -> dict:
+    """The port bench's three pipeline rows at the bench's sizes (2048 records
+    of [12, 5000], batch 256) on the card."""
+    from ptbxl_torch import bench
+
+    clock = bench.Clock(torch.device("cuda"))
+    t0 = time.perf_counter()
+    root = bench.pipeline_tree()
+    tree_s = time.perf_counter() - t0
+    stages = bench.bench_pipeline_stages(clock, root)
+    scaling = bench.bench_host_scaling(clock, root)
+    e2e = bench.bench_pipeline_e2e(clock, root)
+    if scaling is None or stages["reader"] != "adc_cache" or not e2e["rps"] > 0:
+        raise AssertionError(f"pipeline rows: stages {stages}, scaling {scaling}")
+    return {"phase": "pipeline", "tree_s": tree_s, "stages": stages, "host_scaling": scaling,
+            "e2e": e2e}
 
 
 def split_breakdown(launches: list) -> dict:
@@ -1101,6 +1445,30 @@ def main(argv=None) -> int:
           "k5_max_abs_err_probe": k5_probe_err, "p3_max_abs_err_probe": p3_probe_err})
     emit({"phase": "k4_breakdown_ms", "batch": {str(b): v for b, v in k4_breakdown.items()}})
 
+    # -- phase 8: P4, P1 and P2 (gates, then their main paths: the three probe
+    # tools), the data layer, the CLIs and the pipeline rows on a synthetic tree
+    p4_info = phase_p4(gen)
+    emit(p4_info)
+    probe_info = phase_probe_tables()
+    emit(probe_info)
+    import tempfile
+
+    from ptbxl_torch.tools.synthetic_ptbxl import make_synthetic_ptbxl
+
+    tree = os.path.join(ROOT, "build", f"chip_smoke_ptbxl_{DATA_N}_{T_FULL}")
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(tree, "ptbxl_database.csv")):
+        make_synthetic_ptbxl(tree, n_records=DATA_N, n_samples=T_FULL, seed=args.seed)
+    tree_s = time.perf_counter() - t0
+    data_info, datasets = phase_data(tree)
+    data_info["tree_s"] = tree_s
+    emit(data_info)
+    with tempfile.TemporaryDirectory() as work:
+        emit(phase_cli_train(tree, work, args.seed, datasets))
+        emit(phase_cli_eval(tree, work))
+    pipe_info = phase_pipeline()
+    emit(pipe_info)
+
     big = times[BIG]
     one = times[1]
     sources = {
@@ -1202,6 +1570,51 @@ def main(argv=None) -> int:
                        "plain_ms": p, "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                        "library_ms": r["cudnn_ms"]} for r, p in zip(layer_rows, p3_plain_ms)],
     })
+    # P1 and P2: the two probe tables (every probe's kernel time, plain version,
+    # library call and bytes bound, summed over the table)
+    for name, replaces in (("probe_mosaic", "tools/probe_mosaic.py:44"),
+                           ("probe_mosaic2", "tools/probe_mosaic2.py:35")):
+        prow = probe_info["tables"][name]
+        n_ops = sum(r["bound"][0] for r in prow if r["bound"][1] == "operations")
+        total_bound = sum(r["bound"][0] for r in prow)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "ptbxl_torch/csrc/probes.cu",
+            "replaces": replaces, "launches": probe_info["launches"][name],
+            "launches_by_path": {name: probe_info["launches"][name]},
+            "max_abs_err": max(r["max_abs_err"] for r in prow),
+            "ms": sum(r["ms"] for r in prow), "plain_ms": sum(r["plain_ms"] for r in prow),
+            "bound_ms": total_bound,
+            "bound_by": "operations" if 2 * n_ops >= total_bound else "bytes",
+            "library_ms": sum(r["library_ms"] for r in prow), "batch": None,
+            "per_probe": [{k: r[k] for k in ("probe", "err", "max_abs_err", "tol", "ms",
+                                             "plain_ms", "library_ms", "library", "bound")}
+                          for r in prow],
+        })
+    # P4: the four layers at the probe's batch; P3's two modes and cuDNN beside it
+    prows = p4_info["rows"]
+    by_ops = sum(r["bound"][0] for r in prows if r["bound"][1] == "operations")
+    p4_bound = sum(r["bound"][0] for r in prows)
+    kernels.append({
+        "name": "sublane_conv", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_ecgcnn.cu",
+        "replaces": "tools/probe_sublane_conv.py:51",
+        "launches": p4_info["launches"]["conv_layer_cf"],
+        "launches_by_path": {"probe_sublane_conv": p4_info["launches"]["conv_layer_cf"]},
+        "max_abs_err": max(list(p4_info["max_abs_err"].values())
+                           + list(p4_info["max_abs_err_b2048"].values())),
+        "max_abs_err_b2048": max(p4_info["max_abs_err_b2048"].values()),
+        "ms": sum(r["p4_ms"] for r in prows), "plain_ms": sum(p4_info["plain_ms"]),
+        "bound_ms": p4_bound, "bound_by": "operations" if 2 * by_ops >= p4_bound else "bytes",
+        "library_ms": sum(r["cudnn_ms"] for r in prows), "batch": PROBE_LAYER_B,
+        "p3_im2col_ms": sum(r["p3_im2col_ms"] for r in prows),
+        "p3_direct_ms": sum(r["p3_direct_ms"] for r in prows),
+        "per_layer": [{"layer": r["layer"], "ms": r["p4_ms"], "plain_ms": p,
+                       "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                       "library_ms": r["cudnn_ms"], "p3_im2col_ms": r["p3_im2col_ms"],
+                       "p3_direct_ms": r["p3_direct_ms"]}
+                      for r, p in zip(prows, p4_info["plain_ms"])],
+    })
+    if len(kernels) != 10 or not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError(f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

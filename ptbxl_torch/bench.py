@@ -18,6 +18,16 @@ Rows (``bench.py`` line numbers):
   ``block_b=16`` has no counterpart on the card), each gated by
   ``_parity_check`` (:231) and naming the gate in ``parity_gate``.  Headline
   mode runs ``bf16_act`` at 16384 (the int8 rows are not ported yet).
+* the pipeline rows, which read the data layer on a synthetic PTB-XL tree
+  (``ptbxl_torch/tools/synthetic_ptbxl.py``, 2048 records of [12, 5000],
+  made once under the temp directory): ``bench_pipeline_stages`` (:1130,
+  records/s of each host stage and of the int16 H2D copy),
+  ``bench_host_scaling`` (:794, the C++ decoder's and row gather's records/s
+  by thread count, interleaved repeats, ``valid`` only with more than one
+  core) and ``bench_pipeline_e2e`` (:1080, the ADC cache -> ``BatchSource(
+  emit_adc=True)`` -> ``device_prefetch`` -> device conversion, one-pass
+  z-score and the bf16 forward, full epochs timed with one sync at the end).
+  They are measurements, not guarded by the regression gate.
 * ``bench_multimodal`` (:430), bf16 at 12288 with its own 5e-3 parity gate on
   ``data/demo/multimodal``; ``bench_demo_latency`` (:520): forward + Grad-CAM
   of one record, one class and all 5 (``GradCAM.multi``); ``bench_train_step``
@@ -30,7 +40,8 @@ trials, per call.  TFLOP/s and ``mfu_pct`` are against the H100's dense peaks
 named in the sidecar beside ``nvidia-smi``'s name and power limit.  With
 ``--device cpu`` the same rows run on the host with host clocks: a wiring
 check whose numbers are no device measurement (the sidecar says so).
-``PTBXL_TORCH_BENCH_SMOKE=1`` shrinks every row to batch <= 8 and iters <= 2.
+``PTBXL_TORCH_BENCH_SMOKE=1`` shrinks every row to batch <= 8 and iters <= 2
+(the pipeline rows to 24 records of [12, 512]).
 
 A row that raises or misses its parity gate is written to the sidecar with
 its ``error`` and makes the process exit with 1 after the headline line.
@@ -41,6 +52,7 @@ JAX or ptbxl_tpu; the FLOP model is this file's own copy of ``bench.py``'s.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -385,6 +397,192 @@ def bench_train_phases(clock: Clock, batch_size: int, dtype_name: str = "bf16",
     return out
 
 
+# -- the data pipeline ------------------------------------------------------------
+
+PIPE_RECORDS, PIPE_SAMPLES, PIPE_BATCH = 2048, 5000, 256
+PIPE_CLASSES = ["MI", "STTC", "HYP", "CD", "NORM"]
+
+
+def pipeline_tree(n_records: int = PIPE_RECORDS, n_samples: int = PIPE_SAMPLES) -> str:
+    """A synthetic PTB-XL tree under the temp directory (seed 7, as bench.py's),
+    made once: written beside its final path and renamed into place."""
+    import shutil
+    import tempfile
+
+    from ptbxl_torch.tools.synthetic_ptbxl import make_synthetic_ptbxl
+
+    if SMOKE:
+        n_records, n_samples = min(n_records, 24), min(n_samples, 512)
+    root = os.path.join(tempfile.gettempdir(), f"ptbxl_torch_bench_{n_records}_{n_samples}")
+    if not os.path.exists(os.path.join(root, "ptbxl_database.csv")):
+        tmp = f"{root}.tmp{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        make_synthetic_ptbxl(tmp, n_records=n_records, n_samples=n_samples, seed=7)
+        try:
+            os.replace(tmp, root)
+        except OSError:  # another process made it first
+            shutil.rmtree(tmp, ignore_errors=True)
+    return root
+
+
+def _pipeline_dataset(root: str):
+    from ptbxl_torch.data import PTBXLDataset
+
+    return PTBXLDataset(root, "train", PIPE_CLASSES)
+
+
+def bench_pipeline_stages(clock: Clock, root: Optional[str] = None,
+                          batch_size: int = PIPE_BATCH) -> dict:
+    """Records/s of each input-pipeline stage (``bench_pipeline_stages``, :1130):
+    ``host_cold`` (the ADC cache built from the .dat files, then one epoch of
+    int16 batches), ``host_warm`` (an epoch of int16 batches from the warm
+    cache), ``host_nocache`` (per-batch threaded decode, f32 batches) and
+    ``h2d`` / ``h2d_MBps`` (each int16 batch copied from pageable memory to
+    the device and waited for, as ``jax.device_put`` + ``block_until_ready``)."""
+    import shutil
+
+    from ptbxl_torch.data.manifest import CACHE_DIRNAME
+    from ptbxl_torch.data.pipeline import BatchSource
+
+    root = root or pipeline_tree()
+    ds = _pipeline_dataset(root)
+    n, bs = len(ds), _n(batch_size)
+    out = {"records": n, "batch": bs}
+    shutil.rmtree(os.path.join(root, CACHE_DIRNAME, ""), ignore_errors=True)
+    t0 = time.perf_counter()
+    src = BatchSource(ds, bs, shuffle=False, emit_adc=True)
+    for _ in src.epoch(0):
+        pass
+    out["host_cold"] = n / (time.perf_counter() - t0)
+    out["reader"] = src.reader
+    for _ in src.epoch(0):
+        pass
+    t0 = time.perf_counter()
+    for _ in src.epoch(1):
+        pass
+    out["host_warm"] = n / (time.perf_counter() - t0)
+    src2 = BatchSource(ds, bs, shuffle=False, use_adc_cache=False)
+    for _ in src2.epoch(0):
+        pass
+    t0 = time.perf_counter()
+    for _ in src2.epoch(1):
+        pass
+    out["host_nocache"] = n / (time.perf_counter() - t0)
+    out["nocache_reader"] = src2.reader
+    batches = [b["adc_lt"] for b in src.epoch(0)]
+    torch.from_numpy(batches[0]).to(clock.device)
+    clock.sync()
+    t0 = time.perf_counter()
+    moved = 0
+    for a in batches:
+        torch.from_numpy(a).to(clock.device)
+        clock.sync()
+        moved += a.shape[0]
+    dt = time.perf_counter() - t0
+    out["h2d"] = moved / dt
+    out["h2d_MBps"] = moved * batches[0][0].nbytes / dt / 1e6
+    return out
+
+
+def bench_host_scaling(clock: Clock, root: Optional[str] = None, batch_size: int = PIPE_BATCH,
+                       threads: Optional[List[int]] = None) -> Optional[dict]:
+    """Records/s of the C++ decoder and of the warm-cache row gather at 1..N
+    threads (``bench_host_scaling``, :794): one untimed warm-up pass, then 3
+    repeats with the thread counts interleaved, medians; ``valid`` is False on
+    a one-core host, where scaling cannot show.  None without the native
+    library, as the JAX row."""
+    from ptbxl_torch.data.cache import ADCCache
+    from ptbxl_torch.io import native
+    from ptbxl_torch.io.wfdb_io import read_header
+
+    if not native.available():
+        return None
+    ncpu = os.cpu_count() or 1
+    if threads is None:
+        threads = [t for t in (1, 2, 4, 8, 16) if t <= max(2 * ncpu, 2)]
+    root = root or pipeline_tree()
+    ds = _pipeline_dataset(root)
+    rels = list(ds.df["filename_hr"])
+    cache = ADCCache(root, rels).ensure_built(verbose=False)
+    n, bs = len(ds), _n(batch_size)
+    dat_paths = []
+    for rel in rels:
+        rec = os.path.join(root, rel)
+        dat_paths.append(os.path.join(os.path.dirname(rec), read_header(rec).signals[0].file_name))
+    t_len, leads = cache.n_samples, cache.n_leads
+    rng = np.random.default_rng(0)
+
+    def decode_pass(k):
+        t0 = time.perf_counter()
+        for s in range(0, n, bs):
+            _, ok = native.decode_batch_fmt16(dat_paths[s:s + bs], t_len, leads, n_threads=k)
+            if not ok.all():
+                raise RuntimeError("native decode failed")
+        return n / (time.perf_counter() - t0)
+
+    def gather_pass(k):
+        order = rng.permutation(n)
+        t0 = time.perf_counter()
+        for s in range(0, n, bs):
+            native.gather_rows(cache._adc, order[s:s + bs].astype(np.int64), n_threads=k)
+        return n / (time.perf_counter() - t0)
+
+    decode_pass(threads[0])
+    gather_pass(threads[0])
+    repeats = 3
+    dec = {k: [] for k in threads}
+    gat = {k: [] for k in threads}
+    for _ in range(repeats):
+        for k in threads:
+            dec[k].append(decode_pass(k))
+            gat[k].append(gather_pass(k))
+    rows = [{"threads": k, "decode_rps": float(np.median(dec[k])),
+             "gather_rps": float(np.median(gat[k]))} for k in threads]
+    return {"cpu_count": ncpu, "records": n, "batch": bs, "rows": rows, "repeats": repeats,
+            "method": "warmup + interleaved round-robin, median of repeats",
+            "valid": ncpu > 1,
+            "note": None if ncpu > 1 else
+            "cpu_count==1: thread scaling unobservable; table is non-evidence"}
+
+
+def bench_pipeline_e2e(clock: Clock, root: Optional[str] = None, batch_size: int = PIPE_BATCH,
+                       epochs: int = 2) -> dict:
+    """Sustained end-to-end records/s (``bench_pipeline_e2e``, :1080): the
+    int16 ADC cache -> ``BatchSource(emit_adc=True)`` -> ``device_prefetch``
+    (pinned memory, a side stream, depth 2) -> on the device the ADC
+    conversion, the one-pass z-score and the bf16 framework forward, over
+    ``epochs`` full epochs after a warm epoch, with one sync at the end.
+    Records are counted on the host, before the copy."""
+    from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
+
+    root = root or pipeline_tree()
+    ds = _pipeline_dataset(root)
+    src = BatchSource(ds, _n(batch_size), shuffle=True, emit_adc=True)
+    forward = build_forward("framework", "bf16", clock.device)
+    counted = [0]
+
+    def counting(gen):
+        for hb in gen:
+            counted[0] += int(hb["mask"].sum())
+            yield hb
+
+    with torch.no_grad():
+        for b in device_prefetch(src.epoch(0), clock.device):  # warm: cuDNN plans, pinned pool
+            out = forward(b["ecg"])
+        clock.sync()
+        t0 = time.perf_counter()
+        for e in range(1, 1 + epochs):
+            for b in device_prefetch(counting(src.epoch(e)), clock.device):
+                out = forward(b["ecg"])
+        clock.sync()
+        dt = time.perf_counter() - t0
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("pipeline e2e: non-finite probabilities")
+    return {"rps": counted[0] / dt, "records": counted[0], "epochs": epochs,
+            "batch": src.batch_size, "wall_s": dt, "reader": src.reader,
+            "emit_adc": src.emit_adc, "forward": "framework bf16 (one-pass z-score)"}
+
+
 # -- sidecar and regression gate ------------------------------------------------
 
 def _extract_perf_keys(suite: dict) -> Dict[str, Tuple[float, int]]:
@@ -519,6 +717,13 @@ def run(full: bool, device: torch.device, out_path: str) -> Tuple[dict, List[str
             suite.pop(key)
             suite["train_phases"].append(r if r is not None else
                                          {"batch": bs, "error": failures[-1]})
+        # the data layer's log lines go to stderr: stdout is the headline alone
+        with contextlib.redirect_stdout(sys.stderr):
+            root = _record(suite, failures, "pipeline_tree", pipeline_tree)
+            if root is not None:
+                _record(suite, failures, "pipeline_stages", bench_pipeline_stages, clock, root)
+                _record(suite, failures, "host_scaling", bench_host_scaling, clock, root)
+                _record(suite, failures, "pipeline_e2e", bench_pipeline_e2e, clock, root)
     value = best["rps"] if best else 0.0
     suite["headline"] = {
         "metric": HEADLINE_METRIC, "value": value, "unit": "records/s",

@@ -31,6 +31,15 @@
 // Channels are zero-padded to a multiple of 16 in shared memory and in the
 // weights (Cin = 12: 15 * 16 = 240 reduction rows instead of 180), so that no
 // 16-wide slice straddles two taps.
+//
+// P4 (tools/probe_sublane_conv.py make_layer, :51) is the same layer on a
+// channel-major input [B, Cpad, T+14] with an output [B, Cout, T/2]: its
+// kernel stages the input tile transposed (coalesced reads along time) and
+// runs the same tap loop, then stages the pooled tile in shared memory so
+// that the [Cout, T/2] stores coalesce along time.  Its first two layers at
+// B=2048 are bound by bytes (~0.66 GB in and out each), the last two by
+// operations.  The TPU's b_tile (records per grid step in VMEM) has no
+// counterpart: the grid is time tiles x records x channel tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,71 +93,45 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// x [B, Tx, Cin] f32 (Cin % 4 == 0); conv row t reads rows t + k - off (zero
-// outside [0, Tx)); w [kK, CinP, Cout] bf16, zero for channels >= Cin;
-// bias [Cout] f32; y [B, T/2, Cout] f32 = pool(relu(conv + bias)).
 template <int BN>
-__global__ void __launch_bounds__(kThreads)
-tc_conv_block_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ y, int Tx, int T,
-                     int off, int Cin, int CinP, int Cout, int row_tiles) {
-  constexpr int kWN = BN / kWarpsN;     // warp tile: 32 rows x kWN channels
-  constexpr int kMT = kBM / kWarpsM / 16;
-  constexpr int kNT = kWN / 8;
-  constexpr int kWS = BN + kSkew;       // weight tile row stride
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int xs_stride = CinP + kSkew;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][xs_stride]
-  __nv_bfloat16* ws = xs + kRows * xs_stride;                   // 2 x [CinP][kWS]
+struct TileShape {
+  static constexpr int kWN = BN / kWarpsN;  // warp tile: 32 rows x kWN channels
+  static constexpr int kMT = kBM / kWarpsM / 16;
+  static constexpr int kNT = kWN / 8;
+  static constexpr int kWS = BN + kSkew;  // weight tile row stride
+};
 
-  const int rec = blockIdx.x / row_tiles;
-  const int t0 = (blockIdx.x % row_tiles) * kBM;
-  const int n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm0 = (warp % kWarpsM) * (kBM / kWarpsM);
-  const int wn0 = (warp / kWarpsM) * kWN;
-
-  // one tap's weights [CinP, BN] -> buffer buf, 16-byte cp.async chunks
-  auto load_w = [&](int tap, int buf) {
-    constexpr int kChunks = BN / 8;
-    __nv_bfloat16* dst = ws + buf * CinP * kWS;
-    const __nv_bfloat16* src = w + ((long)tap * CinP) * Cout + n0;
-    for (int i = threadIdx.x; i < CinP * kChunks; i += kThreads) {
-      const int r = i / kChunks, ch = i % kChunks;
-      cp_async16(dst + r * kWS + ch * 8, src + (long)r * Cout + ch * 8);
-    }
-  };
-  load_w(0, 0);
-  cp_async_commit();
-
-  // input tile: rows t0 - off .. t0 - off + kRows - 1, rounded to bf16, zero
-  // outside [0, Tx) and for channels >= Cin
-  const float* xr = x + (long)rec * Tx * Cin;
-  const int c4s = CinP / 4;
-  for (int i = threadIdx.x; i < kRows * c4s; i += kThreads) {
-    const int r = i / c4s, c = (i % c4s) * 4;
-    const int t = t0 - off + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t >= 0 && t < Tx && c < Cin) v = *reinterpret_cast<const float4*>(xr + (long)t * Cin + c);
-    uint2 p;
-    p.x = pack_bf16(v.x, v.y);
-    p.y = pack_bf16(v.z, v.w);
-    *reinterpret_cast<uint2*>(xs + r * xs_stride + c) = p;
+// one tap's weights [CinP, BN] -> buffer buf of ws, 16-byte cp.async chunks
+template <int BN>
+__device__ __forceinline__ void load_w_tap(__nv_bfloat16* ws, const __nv_bfloat16* __restrict__ w,
+                                           int tap, int buf, int CinP, int Cout, int n0) {
+  constexpr int kChunks = BN / 8;
+  constexpr int kWS = TileShape<BN>::kWS;
+  __nv_bfloat16* dst = ws + buf * CinP * kWS;
+  const __nv_bfloat16* src = w + ((long)tap * CinP) * Cout + n0;
+  for (int i = threadIdx.x; i < CinP * kChunks; i += kThreads) {
+    const int r = i / kChunks, ch = i % kChunks;
+    cp_async16(dst + r * kWS + ch * 8, src + (long)r * Cout + ch * 8);
   }
+}
 
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
+// acc += the 15 taps' products of the staged input tile xs [kRows][xs_stride]
+// (bf16) and the weights, streamed a tap at a time through the double buffer
+// ws; tap 0's load must already be committed.  Ends with a __syncthreads(), so
+// the shared memory can be reused.
+template <int BN>
+__device__ __forceinline__ void conv_taps(
+    const __nv_bfloat16* xs, int xs_stride, __nv_bfloat16* ws, const __nv_bfloat16* __restrict__ w,
+    int CinP, int Cout, int n0, int wm0, int wn0, int lane,
+    float (&acc)[TileShape<BN>::kMT][TileShape<BN>::kNT][4]) {
+  constexpr int kMT = TileShape<BN>::kMT;
+  constexpr int kNT = TileShape<BN>::kNT;
+  constexpr int kWS = TileShape<BN>::kWS;
   const int lrow = lane & 15, lcol = (lane >> 4) * 8;
 #pragma unroll 1
   for (int tap = 0; tap < kK; ++tap) {
     if (tap + 1 < kK) {
-      load_w(tap + 1, (tap + 1) & 1);
+      load_w_tap<BN>(ws, w, tap + 1, (tap + 1) & 1, CinP, Cout, n0);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -175,6 +158,57 @@ tc_conv_block_kernel(const float* __restrict__ x, const __nv_bfloat16* __restric
     }
     __syncthreads();  // this buffer is refilled two taps on
   }
+}
+
+// x [B, Tx, Cin] f32 (Cin % 4 == 0); conv row t reads rows t + k - off (zero
+// outside [0, Tx)); w [kK, CinP, Cout] bf16, zero for channels >= Cin;
+// bias [Cout] f32; y [B, T/2, Cout] f32 = pool(relu(conv + bias)).
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+tc_conv_block_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ y, int Tx, int T,
+                     int off, int Cin, int CinP, int Cout, int row_tiles) {
+  constexpr int kMT = TileShape<BN>::kMT;
+  constexpr int kNT = TileShape<BN>::kNT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xs_stride = CinP + kSkew;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][xs_stride]
+  __nv_bfloat16* ws = xs + kRows * xs_stride;                   // 2 x [CinP][kWS]
+
+  const int rec = blockIdx.x / row_tiles;
+  const int t0 = (blockIdx.x % row_tiles) * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm0 = (warp % kWarpsM) * (kBM / kWarpsM);
+  const int wn0 = (warp / kWarpsM) * TileShape<BN>::kWN;
+
+  load_w_tap<BN>(ws, w, 0, 0, CinP, Cout, n0);
+  cp_async_commit();
+
+  // input tile: rows t0 - off .. t0 - off + kRows - 1, rounded to bf16, zero
+  // outside [0, Tx) and for channels >= Cin
+  const float* xr = x + (long)rec * Tx * Cin;
+  const int c4s = CinP / 4;
+  for (int i = threadIdx.x; i < kRows * c4s; i += kThreads) {
+    const int r = i / c4s, c = (i % c4s) * 4;
+    const int t = t0 - off + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t >= 0 && t < Tx && c < Cin) v = *reinterpret_cast<const float4*>(xr + (long)t * Cin + c);
+    uint2 p;
+    p.x = pack_bf16(v.x, v.y);
+    p.y = pack_bf16(v.z, v.w);
+    *reinterpret_cast<uint2*>(xs + r * xs_stride + c) = p;
+  }
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  conv_taps<BN>(xs, xs_stride, ws, w, CinP, Cout, n0, wm0, wn0, lane, acc);
 
   // epilogue: rows g and g + 1 of a 16-row tile are lanes 4 apart
   const int g = lane >> 2, q = lane & 3;
@@ -207,6 +241,98 @@ tc_conv_block_kernel(const float* __restrict__ x, const __nv_bfloat16* __restric
   }
 }
 
+// P4: the same conv block on a channel-major input.  x [B, CinP, Tx] f32, already
+// padded in time (conv row t reads columns t + k); w [kK, CinP, Cout] bf16;
+// bias [Cout] f32; y [B, Cout, T/2] f32 (kOutCF) or [B, T/2, Cout].  The
+// input tile is transposed while it is staged (reads coalesce along time), so
+// the tap loop is K4's.  With kOutCF the pooled tile is staged in shared
+// memory as [BN][kBM/2] and written along time, so the stores coalesce.
+template <int BN, bool kOutCF>
+__global__ void __launch_bounds__(kThreads)
+tc_conv_layer_cf_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                        const float* __restrict__ bias, float* __restrict__ y, int Tx, int T,
+                        int CinP, int Cout, int row_tiles) {
+  constexpr int kMT = TileShape<BN>::kMT;
+  constexpr int kNT = TileShape<BN>::kNT;
+  constexpr int kPR = kBM / 2;  // pooled rows of a block
+  constexpr int kOS = kPR + 1;  // staged output row stride (floats)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int xs_stride = CinP + kSkew;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][xs_stride]
+  __nv_bfloat16* ws = xs + kRows * xs_stride;                   // 2 x [CinP][kWS]
+
+  const int rec = blockIdx.x / row_tiles;
+  const int t0 = (blockIdx.x % row_tiles) * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm0 = (warp % kWarpsM) * (kBM / kWarpsM);
+  const int wn0 = (warp / kWarpsM) * TileShape<BN>::kWN;
+
+  load_w_tap<BN>(ws, w, 0, 0, CinP, Cout, n0);
+  cp_async_commit();
+
+  // input tile, transposed while staged: xs[r][c] = bf16(x[rec, c, t0 + r]),
+  // zero past Tx
+  const float* xr = x + (long)rec * CinP * Tx;
+  for (int i = threadIdx.x; i < kRows * CinP; i += kThreads) {
+    const int c = i / kRows, r = i % kRows;
+    const int t = t0 + r;
+    const float v = t < Tx ? xr[(long)c * Tx + t] : 0.f;
+    xs[r * xs_stride + c] = __float2bfloat16_rn(v);
+  }
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  conv_taps<BN>(xs, xs_stride, ws, w, CinP, Cout, n0, wm0, wn0, lane, acc);
+
+  const int g = lane >> 2, q = lane & 3;
+  const int half = T / 2;
+  float* os = reinterpret_cast<float*>(smem);  // [BN][kOS], after the tap loop's last sync
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = __shfl_xor_sync(0xffffffffu, acc[mt][nt][e], 4);
+      if ((g & 1) == 0) {
+        const int col = wn0 + nt * 8 + q * 2;  // within the block's BN channels
+        const float b0 = bias[n0 + col], b1 = bias[n0 + col + 1];
+        const int lrow = wm0 + mt * 16 + g;  // even
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pl = (lrow + 8 * h) / 2;
+          const float o0 = fmaxf(fmaxf(acc[mt][nt][2 * h] + b0, 0.f), fmaxf(p[2 * h] + b0, 0.f));
+          const float o1 =
+              fmaxf(fmaxf(acc[mt][nt][2 * h + 1] + b1, 0.f), fmaxf(p[2 * h + 1] + b1, 0.f));
+          if (kOutCF) {
+            os[col * kOS + pl] = o0;
+            os[(col + 1) * kOS + pl] = o1;
+          } else if (t0 / 2 + pl < half) {
+            float* yr = y + ((long)rec * half + t0 / 2 + pl) * Cout + n0 + col;
+            *reinterpret_cast<float2*>(yr) = make_float2(o0, o1);
+          }
+        }
+      }
+    }
+  }
+  if (kOutCF) {
+    __syncthreads();
+    float* yr = y + ((long)rec * Cout + n0) * half;
+    for (int i = threadIdx.x; i < BN * kPR; i += kThreads) {
+      const int n = i / kPR, pl = i % kPR;
+      const int prow = t0 / 2 + pl;
+      if (prow < half) yr[(long)n * half + prow] = os[n * kOS + pl];
+    }
+  }
+}
+
 template <int BN>
 cudaError_t launch_tc(const float* x, const __nv_bfloat16* w, const float* b, float* y, int B,
                       int Tx, int T, int off, int Cin, int CinP, int Cout, cudaStream_t st) {
@@ -223,6 +349,34 @@ cudaError_t launch_tc(const float* x, const __nv_bfloat16* w, const float* b, fl
   tc_conv_block_kernel<BN><<<grid, kThreads, smem, st>>>(x, w, b, y, Tx, T, off, Cin, CinP, Cout,
                                                          row_tiles);
   return cudaGetLastError();
+}
+
+template <int BN, bool kOutCF>
+cudaError_t launch_tc_cf(const float* x, const __nv_bfloat16* w, const float* b, float* y, int B,
+                         int Tx, int T, int CinP, int Cout, cudaStream_t st) {
+  const size_t main_smem = (size_t)(kRows * (CinP + kSkew) + 2 * CinP * (BN + kSkew)) * 2;
+  const size_t out_smem = kOutCF ? (size_t)BN * (kBM / 2 + 1) * 4 : 0;
+  const size_t smem = main_smem > out_smem ? main_smem : out_smem;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(tc_conv_layer_cf_kernel<BN, kOutCF>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int conv_rows = 2 * (T / 2);
+  const int row_tiles = (conv_rows + kBM - 1) / kBM;
+  dim3 grid(B * row_tiles, Cout / BN);
+  tc_conv_layer_cf_kernel<BN, kOutCF><<<grid, kThreads, smem, st>>>(x, w, b, y, Tx, T, CinP, Cout,
+                                                                     row_tiles);
+  return cudaGetLastError();
+}
+
+template <bool kOutCF>
+cudaError_t launch_cf(const float* x, const __nv_bfloat16* w, const float* b, float* y, int B,
+                      int Tx, int T, int CinP, int Cout, cudaStream_t st) {
+  if (Cout % 128 == 0) return launch_tc_cf<128, kOutCF>(x, w, b, y, B, Tx, T, CinP, Cout, st);
+  if (Cout % 64 == 0) return launch_tc_cf<64, kOutCF>(x, w, b, y, B, Tx, T, CinP, Cout, st);
+  return launch_tc_cf<32, kOutCF>(x, w, b, y, B, Tx, T, CinP, Cout, st);
 }
 
 }  // namespace
@@ -249,6 +403,26 @@ int ptbxl_tc_conv_block(int device, const void* x, const void* w, const void* b,
   else if (Cout % 64 == 0) err = launch_tc<64>(xs, ws, bs, ys, B, Tx, T, off, Cin, CinP, Cout, st);
   else err = launch_tc<32>(xs, ws, bs, ys, B, Tx, T, off, Cin, CinP, Cout, st);
   return (int)err;
+}
+
+// P4: one conv layer on a channel-major, time-padded input.  x [B, CinP, Tx]
+// f32; conv row t in [0, 2*(T/2)), T = Tx - 14, reads columns t + k (k < 15);
+// w [15, CinP, Cout] bf16; b [Cout] f32; y [B, Cout, T/2] f32 when
+// transpose_out, else [B, T/2, Cout].  CinP % 16 == 0, Cout % 32 == 0, T >= 2.
+int ptbxl_conv_layer_cf(int device, const void* x, const void* w, const void* b, void* y, int B,
+                        int Tx, int CinP, int Cout, int transpose_out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int T = Tx - (kK - 1);
+  if (B <= 0 || T < 2 || CinP <= 0 || CinP % 16 || Cout <= 0 || Cout % 32)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xs = static_cast<const float*>(x);
+  const __nv_bfloat16* ws = static_cast<const __nv_bfloat16*>(w);
+  const float* bs = static_cast<const float*>(b);
+  float* ys = static_cast<float*>(y);
+  if (transpose_out) return (int)launch_cf<true>(xs, ws, bs, ys, B, Tx, T, CinP, Cout, st);
+  return (int)launch_cf<false>(xs, ws, bs, ys, B, Tx, T, CinP, Cout, st);
 }
 
 const char* ptbxl_strerror(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -12,6 +12,17 @@ from ptbxl_torch.models.params_io import StateDict, load_checkpoint
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
 
 
+def dtype_from_config(name) -> torch.dtype:
+    """Map the ``train.dtype`` config string to a torch dtype ('bfloat16': bf16
+    activations with f32 parameters and optimizer state)."""
+    table = {"float32": torch.float32, "f32": torch.float32,
+             "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+    key = str(name).lower()
+    if key not in table:
+        raise ValueError(f"train.dtype must be one of {sorted(table)}, got {name!r}")
+    return table[key]
+
+
 def build_ecgcnn(
     in_leads: int = 12,
     feat_dim: int = 256,

@@ -47,9 +47,19 @@ conv block, ``mode="direct"`` K2's conv block in bf16 (15 shifted products);
 both compute conv k=15 with bf16 operands and f32 sums, + bias, ReLU and the
 floor pool, ``[B, T//2, Cout]`` f32.
 
+``conv_layer_cf`` (P4) replaces ``tools/probe_sublane_conv.py::make_layer``
+(:51): the same layer on a channel-major input ``[B, Cpad, T+14]`` f32 with
+weights ``[15*Cpad, Cout]`` (row ``k*Cpad + c``), contracting over all
+``Cpad`` channels (the probe's padded channels hold data too), and an output
+``[B, Cout, T//2]`` (``transpose_out``) or ``[B, T//2, Cout]``.  Its kernel
+(``ptbxl_conv_layer_cf``) runs K4's tap loop on a tile staged transposed.
+The probe's ``b_tile`` (records per TPU grid step) has no counterpart and is
+not taken.
+
 A CPU tensor takes the plain versions (``hybrid_ecgcnn_logits_plain``,
-``conv_layer_plain``); a CUDA tensor launches the kernels or raises.
-``launches`` counts K4 forwards on the card, ``launches_layer`` P3 layers.
+``conv_layer_plain``, ``conv_layer_cf_plain``); a CUDA tensor launches the
+kernels or raises.  ``launches`` counts K4 forwards on the card,
+``launches_layer`` P3 layers, ``launches_layer_cf`` P4 layers.
 """
 
 from __future__ import annotations
@@ -70,12 +80,15 @@ K = 15
 PAD = K // 2
 launches = 0
 launches_layer = 0
+launches_layer_cf = 0
 MODES = ("im2col", "direct")
 
 _I, _P = _build.INT, _build.VOIDP
 _SIGNATURES = {
     # device, x, w, b, y, B, Tx, T, off, Cin, CinP, Cout, stream
     "ptbxl_tc_conv_block": [_I, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    # device, x, w, b, y, B, Tx, CinP, Cout, transpose_out, stream
+    "ptbxl_conv_layer_cf": [_I, _P, _P, _P, _P] + [_I] * 5 + [_P],
 }
 
 
@@ -362,3 +375,60 @@ def conv_layer(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
     launches_layer += 1
     return y
 
+
+
+# -- P4: one conv layer on a channel-major input --------------------------------
+
+def _check_layer_cf(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor) -> int:
+    if x.dim() != 3 or x.shape[2] < 2 * PAD + 2:
+        raise ValueError(f"expected a time-padded [B, Cpad, T+14] with T >= 2, "
+                         f"got {tuple(x.shape)}")
+    cpad = x.shape[1]
+    if tuple(w2d.shape) != (K * cpad, b.shape[0]):
+        raise ValueError(f"w must be [15*Cpad, Cout] = [{K * cpad}, {b.shape[0]}], "
+                         f"got {tuple(w2d.shape)}")
+    return cpad
+
+
+def conv_layer_cf_plain(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
+                        transpose_out: bool = True) -> torch.Tensor:
+    """Plain version of P4's layer: x [B, Cpad, T+14], w2d [15*Cpad, Cout] with
+    row ``k*Cpad + c``, b [Cout] -> ``[B, Cout, T//2]`` (``transpose_out``) or
+    ``[B, T//2, Cout]`` f32: ``relu(sum_k sum_c bf16(x[b,c,t+k]) *
+    bf16(W[k*Cpad+c,o]) + b)`` with f32 sums (TF32 off), then the floor pool."""
+    _check_layer_cf(x, w2d, b)
+    with highest_precision():
+        y = _im2col_block_plain(x.float().transpose(1, 2), w2d, b, torch.bfloat16)
+    return y.transpose(1, 2).contiguous() if transpose_out else y
+
+
+def conv_layer_cf(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
+                  transpose_out: bool = True) -> torch.Tensor:
+    """P4's layer on the card (``ptbxl_conv_layer_cf``); see ``conv_layer_cf_plain``.
+    Needs Cpad % 16 == 0 and Cout % 32 == 0."""
+    global launches_layer_cf
+    if x.device.type == "cpu":
+        return conv_layer_cf_plain(x, w2d, b, transpose_out)
+    cpad = _check_layer_cf(x, w2d, b)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"conv_layer_cf needs a CUDA tensor, got {x.device}")
+    for name, v in (("x", x), ("w", w2d), ("b", b)):
+        if v.device != x.device or v.dtype != torch.float32:
+            raise TypeError(f"{name} must be f32 on {x.device}, got {v.dtype} on {v.device}")
+    cout = w2d.shape[1]
+    if cpad % 16 or cout % 32:
+        raise ValueError(f"conv_layer_cf needs Cpad % 16 == 0 and Cout % 32 == 0, "
+                         f"got Cpad={cpad}, Cout={cout}")
+    x, b = x.contiguous(), b.contiguous()
+    bsz, _, tx = x.shape
+    half = (tx - 2 * PAD) // 2
+    shape = (bsz, cout, half) if transpose_out else (bsz, half, cout)
+    y = torch.empty(shape, dtype=torch.float32, device=x.device)
+    wt = w2d.reshape(K, cpad, cout).to(torch.bfloat16).contiguous()
+    lib = _build.load_library("hybrid_ecgcnn", _SIGNATURES)
+    err = lib.ptbxl_conv_layer_cf(
+        x.get_device(), x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, tx, cpad,
+        cout, int(transpose_out), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "channel-major conv layer launch")
+    launches_layer_cf += 1
+    return y

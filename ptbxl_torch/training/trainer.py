@@ -7,9 +7,10 @@
                    classes=["MI", "STTC", "HYP", "CD", "NORM"])
     state = train(run)
 
-A dataset is any object with ``y`` [N, L], ``__len__``, ``get_raw(idx)``
--> [leads, T] and, for the multimodal task, ``demo`` [N, 5]
-(``data/pipeline.py``).  Per epoch: a train epoch, a val epoch, one CSV row
+A dataset is a PTB-XL dataset (``data/datasets.py``: read through the int16
+ADC cache, converted on the device) or any object with ``y`` [N, L],
+``__len__``, ``get_raw(idx)`` -> [leads, T] and, for the multimodal task,
+``demo`` [N, 5] (``data/pipeline.py``).  Per epoch: a train epoch, a val epoch, one CSV row
 (the reference's 10 columns), the best checkpoint by val ``auprc_macro``
 (reference scripts/03:164-168) as the native ``.npz``, a reference ``.pth``
 and a ``.meta.json`` sidecar with the AUPRC, optional early stopping
@@ -135,8 +136,13 @@ def train(run: TrainRun) -> TrainState:
     state = create_train_state(run.model, lr, run.weight_decay, run.warmup_steps)
     train_step = make_train_step(run.multimodal, run.normalize)
     eval_step = make_eval_step(run.multimodal, run.normalize)
-    train_src = BatchSource(run.train_ds, run.batch_size, shuffle=True, seed=run.seed)
-    val_src = BatchSource(run.val_ds, run.batch_size, shuffle=False, seed=run.seed)
+    # emit_adc ships int16 ADC and converts on the device (half the H2D
+    # bytes), as the JAX trainer does; a dataset without the ADC cache (no
+    # base_dir/df, e.g. an in-memory one) takes per-record reads and f32
+    train_src = BatchSource(run.train_ds, run.batch_size, shuffle=True, seed=run.seed,
+                            emit_adc=True)
+    val_src = BatchSource(run.val_ds, run.batch_size, shuffle=False, seed=run.seed,
+                          emit_adc=True)
 
     start_epoch = 0
     best_auprc = -1.0

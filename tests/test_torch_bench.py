@@ -171,3 +171,19 @@ def test_default_device_needs_a_gpu(tmp_path):
                        text=True, timeout=600)
     assert r.returncode != 0 and "CUDA GPU" in r.stderr
     assert r.stdout.strip() == ""
+
+
+def test_pipeline_rows_read_the_data_layer(full_run):
+    """The three pipeline rows run on the synthetic tree under the smoke (24
+    records of [12, 512]): every stage, the thread sweep and the end-to-end
+    epoch through the ADC cache and the int16 path; none is regression-gated."""
+    _, suite = full_run
+    stages, scaling, e2e = suite["pipeline_stages"], suite["host_scaling"], suite["pipeline_e2e"]
+    for key in ("host_cold", "host_warm", "host_nocache", "h2d", "h2d_MBps"):
+        assert stages[key] > 0, key
+    assert stages["reader"] == "adc_cache" and stages["nocache_reader"] == "native"
+    assert scaling["rows"] and scaling["method"].startswith("warmup")
+    assert scaling["valid"] == (scaling["cpu_count"] > 1)
+    assert e2e["rps"] > 0 and e2e["reader"] == "adc_cache" and e2e["emit_adc"] is True
+    assert e2e["records"] == 2 * stages["records"]
+    assert not any(k.startswith(("pipeline", "host")) for k in bench._extract_perf_keys(suite))

@@ -1,4 +1,6 @@
-"""The PyTorch port imports nothing of JAX or of the JAX package."""
+"""The PyTorch port imports nothing of JAX or of the JAX package, and its
+code imports none of the packages the GPU machine lacks (pandas, PyYAML,
+scikit-learn, wfdb) at any level; matplotlib only inside functions."""
 
 import ast
 import glob
@@ -10,6 +12,7 @@ import pytest
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ptbxl_tpu")
+ABSENT_ON_GPU = ("pandas", "yaml", "sklearn", "wfdb")  # not installed on the GPU machine
 PORT_FILES = sorted(
     os.path.relpath(p, HERE)
     for p in glob.glob(os.path.join(HERE, "ptbxl_torch", "**", "*.py"), recursive=True)
@@ -27,7 +30,18 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.ops.relu_pool, ptbxl_torch.ops.kernels.relu_pool\n"
         "import ptbxl_torch.bench, ptbxl_torch.ops.kernels.hybrid_ecgcnn\n"
         "import ptbxl_torch.tools.probe_zscore, ptbxl_torch.tools.probe_layer_perf\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "import ptbxl_torch.ops.kernels.probes, ptbxl_torch.tools.probe_mosaic\n"
+        "import ptbxl_torch.tools.probe_mosaic2, ptbxl_torch.tools.probe_sublane_conv\n"
+        "import ptbxl_torch.tools.synthetic_ptbxl, ptbxl_torch.config\n"
+        "import ptbxl_torch.io.wfdb_io, ptbxl_torch.io.native, ptbxl_torch.utils.table\n"
+        "import ptbxl_torch.utils.label_maps, ptbxl_torch.data, ptbxl_torch.data.manifest\n"
+        "import ptbxl_torch.data.cache, ptbxl_torch.data.datasets\n"
+        "import ptbxl_torch.training.thresholds, ptbxl_torch.cli._common\n"
+        "import ptbxl_torch.cli.train_ecg_baseline, ptbxl_torch.cli.train_multimodal_prototype\n"
+        "import ptbxl_torch.cli.train_af_binary, ptbxl_torch.cli.ecg_baseline_test\n"
+        "import ptbxl_torch.cli.ecg_multimodal_test, ptbxl_torch.cli.af_binary_test\n"
+        "import ptbxl_torch.cli.grad_cam_ecg_demo\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ABSENT_ON_GPU!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -61,5 +75,36 @@ def test_port_file_list_is_complete():
                  "ptbxl_torch/training/loop.py", "ptbxl_torch/training/trainer.py",
                  "ptbxl_torch/utils/csv_log.py", "ptbxl_torch/utils/rng.py",
                  "ptbxl_torch/bench.py", "ptbxl_torch/ops/kernels/hybrid_ecgcnn.py",
-                 "ptbxl_torch/tools/probe_zscore.py", "ptbxl_torch/tools/probe_layer_perf.py"):
+                 "ptbxl_torch/tools/probe_zscore.py", "ptbxl_torch/tools/probe_layer_perf.py",
+                 "ptbxl_torch/ops/kernels/probes.py", "ptbxl_torch/tools/probe_mosaic.py",
+                 "ptbxl_torch/tools/probe_mosaic2.py", "ptbxl_torch/tools/probe_sublane_conv.py",
+                 "ptbxl_torch/tools/synthetic_ptbxl.py", "ptbxl_torch/config.py",
+                 "ptbxl_torch/io/wfdb_io.py", "ptbxl_torch/io/native.py",
+                 "ptbxl_torch/utils/table.py", "ptbxl_torch/utils/label_maps.py",
+                 "ptbxl_torch/data/manifest.py", "ptbxl_torch/data/cache.py",
+                 "ptbxl_torch/data/datasets.py", "ptbxl_torch/training/thresholds.py",
+                 "ptbxl_torch/cli/_common.py", "ptbxl_torch/cli/train_ecg_baseline.py",
+                 "ptbxl_torch/cli/train_multimodal_prototype.py",
+                 "ptbxl_torch/cli/train_af_binary.py", "ptbxl_torch/cli/ecg_baseline_test.py",
+                 "ptbxl_torch/cli/ecg_multimodal_test.py", "ptbxl_torch/cli/af_binary_test.py",
+                 "ptbxl_torch/cli/grad_cam_ecg_demo.py"):
         assert path in PORT_FILES, path
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_source_imports_nothing_absent_on_the_gpu_machine(path):
+    """pandas, PyYAML, scikit-learn and wfdb at no level (top, function or
+    conditional); matplotlib only inside a function."""
+    tree = ast.parse(open(os.path.join(HERE, path)).read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if a.name.split(".")[0] in ABSENT_ON_GPU]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            if node.module.split(".")[0] in ABSENT_ON_GPU:
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [n for n in names if n.split(".")[0] == "matplotlib"], path
