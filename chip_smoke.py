@@ -5,8 +5,9 @@
 
 Builds the hand-written kernels from ``ptbxl_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (K1 z-score, K2 ECGCNN
-forward, K3 FiLM multimodal forward, K6 ReLU -> MaxPool backward, K4 hybrid
-forward, K5 wide z-score, P3 and P4 conv layers, the 13 P1/P2 probes), drives
+forward and each of its four 3xTF32 conv blocks, K3 FiLM multimodal forward,
+K6 ReLU -> MaxPool backward, K4 hybrid forward, K5 wide z-score, P3 and P4
+conv layers, the 13 P1/P2 probes), drives
 the main paths (``Predictor`` on the baseline and AF checkpoints, then on the
 multimodal checkpoint with demo vectors, Grad-CAM and demo importance on both,
 then ``train`` on the baseline ECGCNN at full width with a reload of its best
@@ -58,8 +59,9 @@ CSV_HEADER = ["datetime", "run_name", "epoch", "train_bce", "val_auroc_macro",
               "val_auprc_macro", "val_f1_macro", "val_bce_loss", "ckpt_path", "config_path"]
 
 # H100 SXM published peaks (NVIDIA data sheet): FP32 without tensor cores,
-# dense bf16 on the tensor cores, HBM3.
+# dense TF32 and bf16 on the tensor cores, HBM3.
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 HYBRID_B = 8192  # the port bench's hybrid row (bench.py:353)
@@ -1073,6 +1075,59 @@ def split_breakdown(launches: list) -> dict:
             "total_ms": total, "launches": launches}
 
 
+CROSSOVER_N = (1, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def crossover_n(rows: dict) -> dict:
+    """From a crossover sweep: the largest N at which the kernel is no slower than
+    cuDNN f32 (what ``KERNEL_MAX_BATCH`` is set to)."""
+    wins = [b for b in CROSSOVER_N if rows[b]["kernel_ms"] <= rows[b]["framework_f32_ms"]]
+    return {"kernel_no_slower_than_f32_max_n": max(wins, default=0)}
+
+
+def conv_block_ms(launches: list) -> list:
+    """The conv-block launches' device ms, in order, from ``launch_breakdown``."""
+    return [ms for name, ms in launches if "conv_block" in name]
+
+
+def phase_k2_blocks(x_raw: torch.Tensor, folded, weights: list) -> dict:
+    """Each of the four 3xTF32 conv blocks against ``_conv_block_plain`` (exact
+    f32, TF32 off) on the plain forward's own activations at that block, at
+    B = 1, 16 and 512 (where the launch picks each of its tile shapes), each
+    timed.  The gate is 2^-18 of the block's scale (the largest |x| conv
+    |w|): two f32 sum orders over up to 15 * 128 terms differ by ~sqrt(1920) *
+    2^-24 = 2.6e-6 of it, and the split leaves 2^-21."""
+    from ptbxl_torch.ops.kernels import fused_ecgcnn as k2, zscore as k1
+    from ptbxl_torch.utils.device import highest_precision
+
+    by_batch = {}
+    for bsz in (1, 16, x_raw.shape[0]):
+        x = x_raw[:bsz].contiguous()
+        stats = k1.zscore_stats(x)
+        with highest_precision():
+            h = k1.zscore_plain(x)
+        rows = []
+        for i, w3 in enumerate(weights):
+            w, b = folded[f"w{i}"], folded[f"b{i}"]
+            with highest_precision():
+                hp = F.pad(h, (0, 0, k2.PAD, k2.PAD))
+                want = k2._conv_block_plain(hp, w, b, torch.float32)
+                scale = float(k2._conv_block_plain(hp.abs(), w.abs(), torch.zeros_like(b),
+                                                   torch.float32).max())
+            xin, st = (x, stats) if i == 0 else (h, None)
+            tol = 2.0 ** -18 * scale
+            got = k2.conv_block_tf32x3(xin, w3, b, st)
+            err = gate(f"conv block {i} B={bsz}", max_diff(got, want), tol)
+            rows.append({"block": i, "shape": [h.shape[1], w.shape[1], w.shape[2]],
+                         "max_abs_err": err, "tol": tol, "scale": scale,
+                         "max_rel_to_scale": err / scale,
+                         "ms": time_ms(lambda: k2.conv_block_tf32x3(xin, w3, b, st))})
+            h = want
+        by_batch[str(bsz)] = rows
+    torch.cuda.synchronize()
+    return {"phase": "k2_blocks", "batch": by_batch}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1136,6 +1191,7 @@ def main(argv=None) -> int:
     # -- phase 3: K2 against its plain version --------------------------------
     state, _ = load_checkpoint(CKPT)
     folded = k2.fold_bn_into_conv({k: v.to(dev) for k, v in state.items()})
+    k2_w = k2.prepare_weights(folded)  # the f32 conv blocks' split weights, built once
     x_demo = torch.from_numpy(demo_signals().transpose(0, 2, 1).copy()).to(dev)
     x_odd = raw_batch(2, gen)[:, :500].contiguous()  # 500 -> 250 -> 125 -> 62 -> 31: odd floors
     cases = {"1": x_raw[:1], "7": x_demo, str(BIG): x_raw, "2 T=500": x_odd}
@@ -1144,16 +1200,18 @@ def main(argv=None) -> int:
         for normalize in (True, False):
             xin = xb if normalize else k1.zscore_plain(xb)
             for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-3)):
-                got = k2.fused_ecgcnn_probs(xin, folded, dt, normalize)
+                got = k2.fused_ecgcnn_probs(xin, folded, dt, normalize, k2_w)
                 want = torch.sigmoid(k2.fused_ecgcnn_logits_plain(xin, folded, dt, normalize))
                 name = f"B={b} normalize={normalize} {str(dt)[6:]}"
                 k2_err[name] = gate(f"fused_ecgcnn {name}", max_diff(got, want), tol)
     torch.cuda.synchronize()
     emit({"phase": "k2", "max_abs_err": k2_err})
+    emit(phase_k2_blocks(x_raw, folded, k2_w))
 
     # -- phase 3b: K3 against its plain version -------------------------------
     state_mm, _ = load_checkpoint(CKPT_MM, arch="multimodal")
     folded_mm = k2.fold_multimodal({k: v.to(dev) for k, v in state_mm.items()})
+    k3_w = k2.prepare_weights(folded_mm)
     sigs_mm, demos_mm = mm_demo_pack()
     x_mm = torch.from_numpy(sigs_mm.transpose(0, 2, 1).copy()).to(dev)
     d_mm = torch.from_numpy(demos_mm).to(dev)
@@ -1165,7 +1223,7 @@ def main(argv=None) -> int:
         for normalize in (True, False):
             xin = xb if normalize else k1.zscore_plain(xb)
             for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-3)):
-                got = k2.fused_multimodal_probs(xin, db, folded_mm, dt, normalize)
+                got = k2.fused_multimodal_probs(xin, db, folded_mm, dt, normalize, k3_w)
                 want = torch.sigmoid(k2.fused_multimodal_logits_plain(xin, db, folded_mm, dt,
                                                                       normalize))
                 name = f"B={b} normalize={normalize} {str(dt)[6:]}"
@@ -1309,12 +1367,16 @@ def main(argv=None) -> int:
         k1_bytes = 2 * xb.numel() * 4
         times[b] = {
             "fused_ecgcnn": {
-                "ms": time_ms(lambda: k2.fused_ecgcnn_logits(xb, folded)),
+                "ms": time_ms(lambda: k2.fused_ecgcnn_logits(xb, folded, weights=k2_w)),
                 "plain_ms": time_ms(lambda: k2.fused_ecgcnn_logits_plain(xb, folded)),
                 # the framework engine: z-score + cuDNN model (f32 TF32 off; bf16)
                 "library_ms": time_ms(lambda: p_hi._forward(xb)),
                 "library_bf16_ms": time_ms(lambda: p_lo._forward(xb)),
-                "bound": bound(k2_flops, k2_bytes),
+                # the f32 products on the FMA units, or as three TF32
+                # tensor-core products each (3xTF32); the bound is the faster
+                "bound_fp32": bound(k2_flops, k2_bytes),
+                "bound_3xtf32": bound(3 * k2_flops, k2_bytes, PEAK_TF32),
+                "bound": min(bound(k2_flops, k2_bytes), bound(3 * k2_flops, k2_bytes, PEAK_TF32)),
             },
             "zscore": {
                 "ms": time_ms(lambda: k1.zscore(xb)),
@@ -1325,13 +1387,16 @@ def main(argv=None) -> int:
             },
         }
         db = d_big[:b].contiguous()
+        k3_flops, k3_bytes = k3_flops_bytes(xb, db, folded_mm)
         times[b]["fused_multimodal"] = {
-            "ms": time_ms(lambda: k2.fused_multimodal_logits(xb, db, folded_mm)),
+            "ms": time_ms(lambda: k2.fused_multimodal_logits(xb, db, folded_mm, weights=k3_w)),
             "plain_ms": time_ms(lambda: k2.fused_multimodal_logits_plain(xb, db, folded_mm)),
             # the framework engine: z-score + cuDNN multimodal model (f32 TF32 off; bf16)
             "library_ms": time_ms(lambda: p_mm_hi._forward(xb, db)),
             "library_bf16_ms": time_ms(lambda: p_mm_lo._forward(xb, db)),
-            "bound": bound(*k3_flops_bytes(xb, db, folded_mm)),
+            "bound_fp32": bound(k3_flops, k3_bytes),
+            "bound_3xtf32": bound(3 * k3_flops, k3_bytes, PEAK_TF32),
+            "bound": min(bound(k3_flops, k3_bytes), bound(3 * k3_flops, k3_bytes, PEAK_TF32)),
         }
     grad_cam_ms = {str(b): time_ms(lambda: cam_demo(x_demo[:b], class_idx=0)) for b in (1, 7)}
     grad_cam_mm_ms = {str(b): time_ms(lambda: cam_mm(x_mm[:b], class_idx=0, x_demo=d_mm[:b]))
@@ -1339,38 +1404,46 @@ def main(argv=None) -> int:
     emit({"phase": "times", "batch": {str(b): t for b, t in times.items()},
           "grad_cam_ms": grad_cam_ms, "grad_cam_mm_ms": grad_cam_mm_ms})
 
-    # engine crossover: device time of one Predictor chunk, kernel vs framework
+    # engine crossover: device time of one Predictor chunk, kernel vs framework;
+    # KERNEL_MAX_BATCH is set from this sweep (the largest N at which the kernel
+    # is no slower than cuDNN f32 at 'highest')
+    import ptbxl_torch.inference as inference
+
     p_kern = Predictor.from_checkpoint(CKPT, engine="kernel")
     crossover = {}
-    for b in (1, 8, 32, 64, 128, 256, 512, 1024):
+    for b in CROSSOVER_N:
         xb = raw_batch(b, gen)
         crossover[b] = {
             "kernel_ms": time_ms(lambda: p_kern._forward(xb), reps=5),
             "framework_f32_ms": time_ms(lambda: p_hi._forward(xb), reps=5),
             "framework_bf16_ms": time_ms(lambda: p_lo._forward(xb), reps=5),
         }
-    emit({"phase": "crossover", "ms": crossover})
+    emit({"phase": "crossover", "ms": crossover, "kernel_max_batch": inference.KERNEL_MAX_BATCH,
+          **crossover_n(crossover)})
 
     # the same for the multimodal Predictor (K3 vs the framework engine)
     p_mm_kern = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", engine="kernel")
     crossover_mm = {}
-    for b in (1, 8, 32, 64, 512):
+    for b in CROSSOVER_N:
         xb, db = raw_batch(b, gen), demo_batch(b, gen)
         crossover_mm[b] = {
             "kernel_ms": time_ms(lambda: p_mm_kern._forward(xb, db), reps=5),
             "framework_f32_ms": time_ms(lambda: p_mm_hi._forward(xb, db), reps=5),
             "framework_bf16_ms": time_ms(lambda: p_mm_lo._forward(xb, db), reps=5),
         }
-    emit({"phase": "crossover_mm", "ms": crossover_mm})
+    emit({"phase": "crossover_mm", "ms": crossover_mm,
+          "kernel_max_batch": inference.KERNEL_MAX_BATCH, **crossover_n(crossover_mm)})
 
     # where K2's and K3's time goes: per-launch device time from the profiler (CUPTI)
     breakdown, breakdown_mm = {}, {}
     for b in (1, BIG):
         xb, db = x_raw[:b].contiguous(), d_big[:b].contiguous()
-        breakdown[b] = launch_breakdown(lambda: k2.fused_ecgcnn_logits(xb, folded))
-        breakdown_mm[b] = launch_breakdown(lambda: k2.fused_multimodal_logits(xb, db, folded_mm))
-    emit({"phase": "k2_breakdown_ms", "batch": {str(b): v for b, v in breakdown.items()}})
-    emit({"phase": "k3_breakdown_ms", "batch": {str(b): v for b, v in breakdown_mm.items()}})
+        breakdown[b] = launch_breakdown(lambda: k2.fused_ecgcnn_logits(xb, folded, weights=k2_w))
+        breakdown_mm[b] = launch_breakdown(
+            lambda: k2.fused_multimodal_logits(xb, db, folded_mm, weights=k3_w))
+    for name, bd in (("k2_breakdown_ms", breakdown), ("k3_breakdown_ms", breakdown_mm)):
+        emit({"phase": name, "batch": {str(b): v for b, v in bd.items()},
+              "conv_blocks_ms": {str(b): conv_block_ms(v) for b, v in bd.items()}})
 
     # the train step: device time per pool backward, and K6 beside its yardsticks
     step_times, k6_times = train_step_times(args.seed, gen)
@@ -1497,6 +1570,11 @@ def main(argv=None) -> int:
             "library_ms_b1": t1["library_ms"],
         }
         if name != "zscore":
+            entry["bound_fp32_ms"] = t5["bound_fp32"][0]
+            entry["bound_3xtf32_ms"] = t5["bound_3xtf32"][0]
+            entry["bound_3xtf32_ms_b1"] = t1["bound_3xtf32"][0]
+            bd = breakdown if name == "fused_ecgcnn" else breakdown_mm
+            entry["conv_blocks_ms"] = conv_block_ms(bd[BIG])
             errs = k2_err if name == "fused_ecgcnn" else k3_err
             entry["max_abs_err_bf16"] = max(v for k, v in errs.items() if k.endswith("bfloat16"))
             entry["library_bf16_ms"] = t5["library_bf16_ms"]

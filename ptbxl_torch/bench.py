@@ -174,7 +174,8 @@ def build_forward(path: str, dtype_name: str, device: torch.device) -> Forward:
         state, _ = load_checkpoint(CKPT)
         folded = k2.fold_bn_into_conv({k: v.to(device) for k, v in state.items()})
         if path == "kernel":
-            return lambda x: k2.fused_ecgcnn_probs(x, folded, torch.float32, True)
+            k2_weights = k2.prepare_weights(folded)
+            return lambda x: k2.fused_ecgcnn_probs(x, folded, torch.float32, True, k2_weights)
         weights = k4.prepare_weights(folded, 2, torch.bfloat16)
         return lambda x: k4.hybrid_ecgcnn_probs(x, folded, torch.bfloat16, True, weights=weights)
     if dtype_name == "f32":

@@ -10,10 +10,12 @@
 * accepts reference-layout ``[N, 12, T]`` or channels-last ``[N, T, 12]`` raw
   signals; the per-lead z-score runs on the device
 * ``engine='kernel'`` runs the hand-written fused forward (K2, or K3 for
-  ``arch='multimodal'``; f32 compute), ``engine='framework'`` the
-  ``nn.Module`` on cuDNN, and ``engine='auto'``
-  takes the kernel for chunks of at most ``PTBXL_TORCH_KERNEL_MAX_BATCH``
-  records (the JAX crossover of 512; its H100 measurement is in PERF.md)
+  ``arch='multimodal'``; f32 compute, its conv blocks in 3xTF32 on the tensor
+  cores), ``engine='framework'`` the ``nn.Module`` on cuDNN, and
+  ``engine='auto'`` takes the kernel for chunks of at most
+  ``PTBXL_TORCH_KERNEL_MAX_BATCH`` records: by default 1024, the largest chunk
+  at which the kernel engine was no slower than cuDNN f32 at ``'highest'`` on
+  the H100 (chip_smoke.py's ``crossover`` phase, PERF.md)
 * ``precision='highest'`` is f32 with TF32 off and the two-pass z-score;
   ``'default'`` runs the framework engine in bf16 with the one-pass z-score
   (inference.py:198-202).  The kernel engine computes in f32 either way, as
@@ -39,11 +41,12 @@ from ptbxl_torch.ops.kernels.fused_ecgcnn import (
     fold_multimodal,
     fused_ecgcnn_probs,
     fused_multimodal_probs,
+    prepare_weights,
 )
 from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
 
-KERNEL_MAX_BATCH = int(os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH", "512"))
+KERNEL_MAX_BATCH = int(os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH", "1024"))
 
 _ARCHS = ("ecgcnn", "multimodal")
 _ENGINES = ("auto", "framework", "kernel")
@@ -99,10 +102,11 @@ class Predictor:
                                 precision=precision, dtype=dtype)
         merge_state(self.model, state_dict, strict=True)
         self.model.to(self.device).eval()
-        self._folded = None
+        self._folded = self._weights = None
         if engine != "framework":
             fold = fold_multimodal if arch == "multimodal" else fold_bn_into_conv
             self._folded = fold({k: v.to(self.device) for k, v in self.model.state_dict().items()})
+            self._weights = prepare_weights(self._folded)  # the kernel's split f32 weights, once
         self._zscore = (zscore_per_lead_batch if precision == "highest"
                         else zscore_per_lead_batch_onepass)
 
@@ -122,8 +126,10 @@ class Predictor:
         """One chunk on the device: x [B, T, 12] (+ d [B, 5] for multimodal) -> probs."""
         if self._use_kernel(x.shape[0]):
             if self.arch == "multimodal":
-                return fused_multimodal_probs(x, d, self._folded, normalize=self.normalize)
-            return fused_ecgcnn_probs(x, self._folded, normalize=self.normalize)
+                return fused_multimodal_probs(x, d, self._folded, normalize=self.normalize,
+                                              weights=self._weights)
+            return fused_ecgcnn_probs(x, self._folded, normalize=self.normalize,
+                                      weights=self._weights)
         h = self._zscore(x) if self.normalize else x
         logits = self.model(h, d) if self.arch == "multimodal" else self.model(h)
         return torch.sigmoid(logits.float())

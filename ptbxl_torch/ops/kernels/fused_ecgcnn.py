@@ -9,50 +9,62 @@ Replaces ``ptbxl_tpu/ops/pallas/fused_ecgcnn.py``: ``_make_kernel`` (:89),
 (:224) (K3).  Kernels: ``ptbxl_torch/csrc/fused_ecgcnn.cu``, plus K1's
 ``zscore_stats``.
 
-What bounds it on the H100: operations (1.133 GFLOP a record at T=5000 of
-non-tensor-core FP32).  The TPU kernel keeps a whole record on chip; an H100
-block cannot (227 KB of shared memory, a 240 KB input), so the forward is a
-short sequence of launches on the current stream: ``zscore_stats`` (when
-``normalize``), one conv-block kernel per block (z-score applied on load for
-block 0, 15 taps accumulated in f32 registers, folded bias, ReLU and floor
-pool in registers, pooled tile written), and one tail kernel (mean over T,
-proj, head).  Intermediates go through device memory, allocated here with
-``torch.empty``; the source says why that costs little at f32.  K3 runs the
-same backbone launches and ends in its own tail kernel (mean over T, proj,
-demographics MLP, FiLM, head); its bound is K2's.
+What bounds it on the H100: operations, 1.133 GFLOP a record at T=5000: at
+B=512, 8.65 ms at the FP32 FMA rate, 3.52 ms as the three TF32 products a
+f32 product takes on the tensor cores (3xTF32, 495 TFLOP/s).  The TPU kernel
+keeps a whole record on chip; an H100 block cannot (227 KB of shared memory,
+a 240 KB input), so the forward is a short sequence of launches on the
+current stream: ``zscore_stats`` (when ``normalize``), one conv-block kernel
+per block, and one tail kernel (mean over T, proj, head).  In f32 the conv
+block is an implicit GEMM on the tensor cores in 3xTF32: the input is split
+as ``big + small`` in registers, the weights once on the host
+(``prepare_weights``), and each product is three TF32 ``mma.sync`` products
+with f32 sums, to about 2^-22 of each product; the z-score is applied while
+block 0's input is staged, and bias, ReLU and the floor pool happen in the
+epilogue.  In bf16 it is an FMA kernel with bf16-rounded operands.
+Intermediates go through device memory, allocated here with
+``torch.empty``; the source says why that costs little.  K3 runs the same
+backbone launches and ends in its own tail kernel (mean over T, proj,
+demographics MLP, FiLM, head); its bound is K2's.  Left for later: ``wgmma``
+with TF32 operands fed by TMA, and fusing blocks.
 
 A CPU tensor takes the plain versions (``fused_ecgcnn_logits_plain``,
 ``fused_multimodal_logits_plain``), which follow ``_make_kernel``'s and
-``_make_mm_kernel``'s arithmetic: 15 shifted products, the folded bias, the
-floor pool, a ones-mean and bf16 operand rounding where the JAX products
-round.  A CUDA tensor launches the kernels or raises.  ``launches`` counts
-K2 forwards launched on the card and ``launches_mm`` K3 forwards (each is
-the sequence above).
+``_make_mm_kernel``'s arithmetic: 15 shifted products in exact f32 (TF32
+off), the folded bias, the floor pool, a ones-mean and bf16 operand rounding
+where the JAX products round.  A CUDA tensor launches the kernels or raises.
+``launches`` counts K2 forwards launched on the card and ``launches_mm`` K3
+forwards (each is the sequence above).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ptbxl_torch.models.ecg_cnn import BN_EPS
 from ptbxl_torch.ops.kernels import _build
+from ptbxl_torch.ops.kernels.probes import tf32_round
 from ptbxl_torch.ops.kernels.zscore import zscore_plain, zscore_stats
 from ptbxl_torch.utils.device import highest_precision
 
 K = 15
 PAD = K // 2
 MAX_LABELS = 128  # the TPU kernels' output tile (fused_ecgcnn.py:131, :298)
+CH_MULT = 8  # the tensor-core conv block pads channels to a multiple of the mma depth
 launches = 0
 launches_mm = 0
 
 _I, _P = _build.INT, _build.VOIDP
 _SIGNATURES = {
-    # device, x, stats, w, b, y, B, T, Cin, Cout, bf16, stream
-    "ptbxl_conv_block": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # device, x, w, b, y, B, Tx, Cin, Cout, bf16, stream (pre-padded x, P3's direct layer)
-    "ptbxl_conv_block_valid": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x, stats, w3, b, y, B, T, Cin, CinP, Cout, stream
+    "ptbxl_conv_block_tf32x3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x, stats, w, b, y, B, T, Cin, Cout, stream
+    "ptbxl_conv_block_bf16": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # device, x, w, b, y, B, Tx, Cin, Cout, stream (pre-padded x, P3's direct layer)
+    "ptbxl_conv_block_valid": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, h, pw, pb, hw, hb, logits, B, T, C, F, L, bf16, stream
     "ptbxl_tail": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # device, h, pw, pb, fc1_w, fc1_b, fc2_w, fc2_b, film_w, film_b, hw, hb, demo, logits,
@@ -187,6 +199,72 @@ def fused_multimodal_logits_plain(x: torch.Tensor, demo: torch.Tensor, folded: F
         return _dot1(z_cond, folded["head_w"], compute_dtype) + folded["head_b"]
 
 
+def tf32x3_weight(w: torch.Tensor) -> torch.Tensor:
+    """[15, Cin, Cout] f32 -> the tensor-core conv block's weights [2, Cout, 15*CinP] f32.
+
+    Channels are zero-padded to ``CinP``, a multiple of ``CH_MULT``; column
+    ``k*CinP + c`` of row ``o`` is ``w[k, c, o]``, so the kernel's B fragments
+    load without a transpose.  Plane 0 is ``big = tf32_round(w)``, plane 1
+    ``small = tf32_round(w - big)``: both TF32 values, ``big + small`` within
+    2^-22 of ``w``.
+    """
+    k, cin, cout = w.shape
+    cin_p = -(-cin // CH_MULT) * CH_MULT
+    wt = F.pad(w.float(), (0, 0, 0, cin_p - cin)).permute(2, 0, 1).reshape(cout, k * cin_p)
+    big = tf32_round(wt)
+    return torch.stack([big, tf32_round(wt - big)]).contiguous()
+
+
+def prepare_weights(folded: Folded) -> list:
+    """The f32 conv blocks' split weights (``tf32x3_weight``), one a block, built
+    once and passed as ``weights``; without them a call builds its own."""
+    return [tf32x3_weight(folded[f"w{i}"]) for i in range(int(folded["n_blocks"]))]
+
+
+def conv_block_tf32x3_plain(x: torch.Tensor, w3: torch.Tensor, b: torch.Tensor,
+                            stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``conv_block_tf32x3``: the exact-f32 block
+    (``_conv_block_plain``, TF32 off) with ``w = big + small`` read back from ``w3``."""
+    cin = x.shape[2]
+    cout, cin_p = w3.shape[1], w3.shape[2] // K
+    w = (w3[0] + w3[1]).view(cout, K, cin_p).permute(1, 2, 0)[:, :cin]
+    h = x if stats is None else (x - stats[:, None, :, 0]) / stats[:, None, :, 1]
+    with highest_precision():
+        return _conv_block_plain(F.pad(h, (0, 0, PAD, PAD)), w, b, torch.float32)
+
+
+def conv_block_tf32x3(x: torch.Tensor, w3: torch.Tensor, b: torch.Tensor,
+                      stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One f32 conv block on the tensor cores (3xTF32): x [B, T, Cin] f32 ->
+    pool(relu(conv_SAME(z(x), w) + b)) [B, T//2, Cout], where ``w3`` is
+    ``tf32x3_weight(w)`` and ``z`` the z-score from ``stats`` ([B, Cin, 2],
+    ``zscore_stats``) or none.  The kernel picks its tile from the grid.  A
+    CPU tensor takes ``conv_block_tf32x3_plain``."""
+    bsz, t, cin = x.shape
+    cout, cin_p = w3.shape[1], w3.shape[2] // K
+    if (t < 2 or cout % 32 or cin_p % CH_MULT or cin_p < cin
+            or tuple(w3.shape) != (2, cout, K * cin_p) or tuple(b.shape) != (cout,)):
+        raise ValueError(f"conv block needs T >= 2, Cout % 32 == 0 and w3 [2, Cout, 15*CinP] "
+                         f"with CinP % {CH_MULT} == 0, CinP >= Cin; got x {tuple(x.shape)}, "
+                         f"w3 {tuple(w3.shape)}, b {tuple(b.shape)}")
+    if stats is not None and tuple(stats.shape) != (bsz, cin, 2):
+        raise ValueError(f"stats must be [{bsz}, {cin}, 2], got {tuple(stats.shape)}")
+    for name, v in (("x", x), ("w3", w3), ("b", b), ("stats", stats)):
+        if v is not None and (v.device != x.device or v.dtype != torch.float32
+                              or not v.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 on {x.device}")
+    if x.device.type == "cpu":
+        return conv_block_tf32x3_plain(x, w3, b, stats)
+    y = torch.empty((bsz, t // 2, cout), dtype=torch.float32, device=x.device)
+    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
+    err = lib.ptbxl_conv_block_tf32x3(
+        x.get_device(), x.data_ptr(), None if stats is None else stats.data_ptr(), w3.data_ptr(),
+        b.data_ptr(), y.data_ptr(), bsz, t, cin, cin_p, cout,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "tf32x3 conv block launch")
+    return y
+
+
 def _check(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype) -> None:
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_ecgcnn kernels need a CUDA tensor, got {x.device}")
@@ -207,32 +285,44 @@ def _check(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype) -> None:
             raise ValueError(f"folded[{key!r}] must be contiguous f32 on {x.device}")
 
 
-def _backbone(lib, x: torch.Tensor, folded: Folded, bf16: int, normalize: bool,
-              stream: int) -> torch.Tensor:
-    """Launch ``zscore_stats`` (when ``normalize``) and one conv-block kernel a block."""
+def _backbone(lib, x: torch.Tensor, folded: Folded, bf16: int, normalize: bool, stream: int,
+              weights: Optional[list]) -> torch.Tensor:
+    """Launch ``zscore_stats`` (when ``normalize``) and one conv-block kernel a block:
+    the 3xTF32 block with ``weights`` (``prepare_weights``, built here when None)
+    in f32, the bf16 block in bf16."""
     b, t, _ = x.shape
     dev = x.get_device()
     stats = zscore_stats(x) if normalize else None
+    n_blocks = int(folded["n_blocks"])
+    if not bf16:
+        weights = prepare_weights(folded) if weights is None else weights
+        if len(weights) != n_blocks:
+            raise ValueError(f"weights hold {len(weights)} blocks, the model {n_blocks}")
     h = x
-    for i in range(int(folded["n_blocks"])):
+    for i in range(n_blocks):
         w, bias = folded[f"w{i}"], folded[f"b{i}"]
-        cin, cout = w.shape[1], w.shape[2]
-        y = torch.empty((b, t // 2, cout), dtype=torch.float32, device=x.device)
-        err = lib.ptbxl_conv_block(
-            dev, h.data_ptr(), stats.data_ptr() if (i == 0 and stats is not None) else None,
-            w.data_ptr(), bias.data_ptr(), y.data_ptr(), b, t, cin, cout, bf16, stream)
-        _build.check(lib, err, f"conv block {i} launch")
+        st = stats if i == 0 else None
+        if bf16:
+            cin, cout = w.shape[1], w.shape[2]
+            y = torch.empty((b, t // 2, cout), dtype=torch.float32, device=x.device)
+            err = lib.ptbxl_conv_block_bf16(
+                dev, h.data_ptr(), None if st is None else st.data_ptr(), w.data_ptr(),
+                bias.data_ptr(), y.data_ptr(), b, t, cin, cout, stream)
+            _build.check(lib, err, f"conv block {i} launch")
+        else:
+            y = conv_block_tf32x3(h, weights[i], bias, st)
         h, t = y, t // 2
     return h
 
 
 def fused_ecgcnn_logits(x: torch.Tensor, folded: Folded,
                         compute_dtype: torch.dtype = torch.float32,
-                        normalize: bool = True) -> torch.Tensor:
+                        normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
     """x: [B, T, 12] raw signals -> logits [B, num_labels].
 
     ``folded`` from ``fold_bn_into_conv`` on x's device.  ``normalize``
     applies the per-lead z-score (False for pre-normalized input).
+    ``weights`` from ``prepare_weights(folded)`` (f32 only), or None to build them.
     """
     global launches
     if x.device.type == "cpu":
@@ -246,7 +336,7 @@ def fused_ecgcnn_logits(x: torch.Tensor, folded: Folded,
     lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bf16 = int(compute_dtype == torch.bfloat16)
-    h = _backbone(lib, x, folded, bf16, normalize, stream)
+    h = _backbone(lib, x, folded, bf16, normalize, stream, weights)
     pw, hw = folded["proj_w"], folded["head_w"]
     logits = torch.empty((b, num_labels), dtype=torch.float32, device=x.device)
     err = lib.ptbxl_tail(
@@ -260,17 +350,18 @@ def fused_ecgcnn_logits(x: torch.Tensor, folded: Folded,
 
 def fused_ecgcnn_probs(x: torch.Tensor, folded: Folded,
                        compute_dtype: torch.dtype = torch.float32,
-                       normalize: bool = True) -> torch.Tensor:
-    return torch.sigmoid(fused_ecgcnn_logits(x, folded, compute_dtype, normalize))
+                       normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+    return torch.sigmoid(fused_ecgcnn_logits(x, folded, compute_dtype, normalize, weights))
 
 
 def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
                             compute_dtype: torch.dtype = torch.float32,
-                            normalize: bool = True) -> torch.Tensor:
+                            normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
     """x: [B, T, 12] raw signals, demo: [B, 5] -> logits [B, num_labels] (K3).
 
     ``folded`` from ``fold_multimodal`` on x's device; the demo rows are
-    passed as they are (D = ``fc1_w.shape[0]``).
+    passed as they are (D = ``fc1_w.shape[0]``).  ``weights`` as in
+    ``fused_ecgcnn_logits``.
     """
     global launches_mm
     _check_labels(folded)
@@ -290,7 +381,7 @@ def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
     lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bf16 = int(compute_dtype == torch.bfloat16)
-    h = _backbone(lib, x, folded, bf16, normalize, stream)
+    h = _backbone(lib, x, folded, bf16, normalize, stream, weights)
     pw, w1, w2 = folded["proj_w"], folded["fc1_w"], folded["fc2_w"]
     c, f, h1, hid = pw.shape[0], pw.shape[1], w1.shape[1], w2.shape[1]
     want = {"proj_w": (h.shape[2], f), "fc2_w": (h1, hid), "film_w": (hid, 2 * f),
@@ -311,5 +402,6 @@ def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
 
 def fused_multimodal_probs(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
                            compute_dtype: torch.dtype = torch.float32,
-                           normalize: bool = True) -> torch.Tensor:
-    return torch.sigmoid(fused_multimodal_logits(x, demo, folded, compute_dtype, normalize))
+                           normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+    return torch.sigmoid(fused_multimodal_logits(x, demo, folded, compute_dtype, normalize,
+                                                 weights))

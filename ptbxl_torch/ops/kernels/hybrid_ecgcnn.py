@@ -21,8 +21,9 @@ B=8192); their f32 input is 0.32 MB a record (0.096 us at 3.35 TB/s).
 
 Design.  In bf16 each deep block is one launch of the tensor-core conv block
 (an implicit-GEMM im2col with ``mma.sync`` bf16 -> f32; the source says
-how).  In f32 (which the JAX tests use) a deep block is K2's f32 conv block:
-the same function with its sums in another order.  The tail is K2's tail
+how).  In f32 (which the JAX tests use) a deep block is K2's f32 conv block
+(3xTF32 on the tensor cores, ``fused_ecgcnn.conv_block_tf32x3``): the same
+function with its sums in another order.  The tail is K2's tail
 launch, which computes exactly the hybrid tail.  The front's convolutions run
 on cuDNN: in bf16, a convolution of bf16 tensors returns bf16 where JAX keeps
 the conv output in f32, so its output takes one extra rounding to bf16 before
@@ -37,13 +38,13 @@ The JAX function's ``block_b`` is not taken: on the TPU it sets the grid's
 record tile and pads B to it, while the H100 kernels' grid is time tiles x
 records, so it would change nothing here but padding records that are
 computed and thrown away.  The card's weight layouts (the front's
-channels-last conv weights, the deep blocks' padded bf16 tap weights) are
-built once by ``prepare_weights`` and passed as ``weights``; without them a
-call builds its own.
+channels-last conv weights, the deep blocks' padded bf16 tap weights, or in
+f32 their split 3xTF32 weights) are built once by ``prepare_weights`` and
+passed as ``weights``; without them a call builds its own.
 
 ``conv_layer`` (P3) is one layer on a pre-padded input ``[B, T+14, Cin]`` f32
 with weights ``[15*Cin, Cout]``: ``mode="im2col"`` launches the tensor-core
-conv block, ``mode="direct"`` K2's conv block in bf16 (15 shifted products);
+conv block, ``mode="direct"`` K2's bf16 FMA conv block (15 shifted products);
 both compute conv k=15 with bf16 operands and f32 sums, + bias, ReLU and the
 floor pool, ``[B, T//2, Cout]`` f32.
 
@@ -184,13 +185,14 @@ def front_weight(w: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
 def prepare_weights(folded: Folded, split: int = 2,
                     compute_dtype: torch.dtype = torch.bfloat16) -> dict:
     """The card's weight layouts for one ``split`` and ``compute_dtype``, built
-    once: the front's (``front_weight``) and, in bf16, the deep blocks' tap
-    weights (``tc_weight``; in f32 the deep blocks read ``folded`` as it is)."""
+    once: the front's (``front_weight``) and the deep blocks' tap weights
+    (``tc_weight`` in bf16, K2's split ``tf32x3_weight`` in f32)."""
     _check_split(split, int(folded["n_blocks"]))
-    deep = range(split, int(folded["n_blocks"])) if compute_dtype == torch.bfloat16 else ()
+    deep_weight = tc_weight if compute_dtype == torch.bfloat16 else k2.tf32x3_weight
     return {"split": split, "dtype": compute_dtype,
             "front": [front_weight(folded[f"w{i}"], compute_dtype) for i in range(split)],
-            "deep": [tc_weight(folded[f"w{i}"]) for i in deep]}
+            "deep": [deep_weight(folded[f"w{i}"])
+                     for i in range(split, int(folded["n_blocks"]))]}
 
 
 def _tc_conv(x: torch.Tensor, wt: torch.Tensor, b: torch.Tensor, t: int, off: int) -> torch.Tensor:
@@ -284,19 +286,11 @@ def hybrid_ecgcnn_logits(x: torch.Tensor, folded: Folded, split: int = 2,
         h = zscore_per_lead_batch(x) if normalize else x
         h = _front(h, folded, weights["front"], compute_dtype)
     for i in range(split, int(folded["n_blocks"])):
-        w, b = folded[f"w{i}"], folded[f"b{i}"]
-        t, cin, cout = h.shape[1], w.shape[1], w.shape[2]
+        wt, b = weights["deep"][i - split], folded[f"b{i}"]
         if f32:
-            if cout % 32 or t < 2:
-                raise ValueError(f"block {i}: needs T >= 2 and Cout % 32 == 0, "
-                                 f"got T={t}, Cout={cout}")
-            y = torch.empty((bsz, t // 2, cout), dtype=torch.float32, device=x.device)
-            err = lib.ptbxl_conv_block(dev, h.data_ptr(), None, w.data_ptr(), b.data_ptr(),
-                                       y.data_ptr(), bsz, t, cin, cout, 0, stream)
-            _build.check(lib, err, f"conv block {i} launch")
+            h = k2.conv_block_tf32x3(h, wt, b)
         else:
-            y = _tc_conv(h, weights["deep"][i - split], b, t, PAD)
-        h = y
+            h = _tc_conv(h, wt, b, h.shape[1], PAD)
     pw, hw = folded["proj_w"], folded["head_w"]
     logits = torch.empty((bsz, num_labels), dtype=torch.float32, device=x.device)
     err = lib.ptbxl_tail(dev, h.data_ptr(), pw.data_ptr(), folded["proj_b"].data_ptr(),
@@ -347,7 +341,7 @@ def conv_layer_plain(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
 def conv_layer(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
                mode: str = "im2col") -> torch.Tensor:
     """P3's layer on the card (``mode`` im2col: the tensor-core conv block;
-    direct: K2's conv block in bf16); see ``conv_layer_plain``."""
+    direct: K2's bf16 FMA conv block); see ``conv_layer_plain``."""
     global launches_layer
     if x.device.type == "cpu":
         return conv_layer_plain(x, w2d, b, mode)
@@ -370,7 +364,7 @@ def conv_layer(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
         y = torch.empty((bsz, t // 2, cout), dtype=torch.float32, device=x.device)
         err = lib.ptbxl_conv_block_valid(
             x.get_device(), x.data_ptr(), w2d.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, tx,
-            cin, cout, 1, torch.cuda.current_stream(x.device).cuda_stream)
+            cin, cout, torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, err, "direct conv layer launch")
     launches_layer += 1
     return y

@@ -103,7 +103,10 @@ def _export_best(run: TrainRun, state: TrainState, val_auprc: float) -> None:
     except OSError as e:
         print(f"[WARN] could not write best-ckpt sidecar: {e}")
     if run.pth_export:
-        export_pth(os.path.splitext(run.ckpt_path)[0] + ".pth", sd, classes=run.classes)
+        try:
+            export_pth(os.path.splitext(run.ckpt_path)[0] + ".pth", sd, classes=run.classes)
+        except Exception as e:  # a convenience export must not end a training run
+            print(f"[WARN] .pth export failed ({e}); native .npz saved")
 
 
 def _save_resume(path: str, state: TrainState, epoch: int, best_auprc: float,

@@ -169,7 +169,8 @@ def test_card_front_matches_plain_front(models, split, dtype):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_prepare_weights_layouts(models, split, dtype):
     """One front weight a front block ([Cout, CinP, 1, 15] channels-last, Cin
-    padded to 16), and in bf16 one tap weight a deep block (``tc_weight``)."""
+    padded to 16), and one tap weight a deep block (``tc_weight`` in bf16, K2's
+    split ``tf32x3_weight`` in f32)."""
     _, tf = models
     tdt = DTYPES[dtype][1]
     wts = k4.prepare_weights(tf, split, tdt)
@@ -182,7 +183,8 @@ def test_prepare_weights_layouts(models, split, dtype):
         assert wt.is_contiguous(memory_format=torch.channels_last)
         torch.testing.assert_close(wt[:, :w.shape[1], 0].float(),
                                    w.permute(2, 1, 0).to(tdt).float(), rtol=0, atol=0)
-    deep = [k4.tc_weight(tf[f"w{i}"]) for i in range(split, 4)] if dtype == "bf16" else []
+    deep_weight = k4.tc_weight if dtype == "bf16" else k2.tf32x3_weight
+    deep = [deep_weight(tf[f"w{i}"]) for i in range(split, 4)]
     assert len(wts["deep"]) == len(deep)
     for got, want in zip(wts["deep"], deep):
         torch.testing.assert_close(got, want, rtol=0, atol=0)

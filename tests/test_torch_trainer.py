@@ -171,6 +171,31 @@ def test_early_stopping_triggers(data, jax_vars, tmp_path, monkeypatch, capsys):
     assert not os.path.exists(tmp_path / "ckpts" / "best.pth")
 
 
+def test_pth_export_failure_warns_and_training_goes_on(data, jax_vars, tmp_path, monkeypatch,
+                                                       capsys):
+    """A ``.pth`` that cannot be written (a directory sits at its path) is
+    reported as the JAX trainer reports it (ptbxl_tpu/training/trainer.py:113-121);
+    the ``.npz`` and its sidecar stay and the next epoch runs."""
+    seq = iter([0.5, 0.6])  # every epoch improves, so every epoch exports
+
+    def fake_eval(state, eval_step, batches, threshold=0.5, loss_mode="per_sample", desc=None):
+        list(batches)
+        return {"auroc_macro": 0.5, "auprc_macro": next(seq), "f1_macro": 0.0, "bce_loss": 1.0}
+
+    monkeypatch.setattr(trainer_mod, "eval_one_epoch", fake_eval)
+    os.makedirs(tmp_path / "ckpts" / "best.pth")
+    train(_port_run(data, jax_vars, tmp_path, 2))
+    out = capsys.readouterr().out
+    assert out.count("[WARN] .pth export failed (") == 2
+    assert out.count("); native .npz saved") == 2
+    assert "Epoch 2/2" in out
+    assert jax_load_npz(str(tmp_path / "ckpts" / "best.npz"))[1] == CLASSES
+    with open(tmp_path / "ckpts" / "best.npz.meta.json") as f:
+        assert json.load(f)["val_auprc"] == 0.6
+    assert len(_rows(tmp_path / "logs" / "metrics.csv")) == 3
+    assert os.path.isdir(tmp_path / "ckpts" / "best.pth")
+
+
 def test_csv_rows_match_jax(tmp_path):
     """The same row through both writers: equal bytes but for the timestamp."""
     from ptbxl_tpu.utils.csv_log import log_epoch_to_csv as jax_log
