@@ -6,8 +6,9 @@
 Builds the hand-written kernels from ``ptbxl_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (K1 z-score, K2 ECGCNN
 forward and each of its four 3xTF32 conv blocks, K3 FiLM multimodal forward,
-K6 ReLU -> MaxPool backward, K4 hybrid forward, K5 wide z-score, P3 and P4
-conv layers, the 13 P1/P2 probes), drives
+K6 ReLU -> MaxPool backward, K4 hybrid forward and each of its four ``wgmma``
+conv blocks, K5 wide z-score, P3 and P4 conv layers, the 13 P1/P2 probes,
+each probe also timed in a CUDA graph), drives
 the main paths (``Predictor`` on the baseline and AF checkpoints, then on the
 multimodal checkpoint with demo vectors, Grad-CAM and demo importance on both,
 then ``train`` on the baseline ECGCNN at full width with a reload of its best
@@ -598,9 +599,10 @@ def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -
 
 def phase_k4(folded, cases: dict) -> dict:
     """K4 against its plain version: each case with the z-score on and off,
-    split 1, 2 and 3 (deep blocks Cin 32/64/128, and the tail), f32 (probs
-    2e-5) and bf16 (5e-3: the front's cuDNN bf16 conv rounds its output once
-    more than the plain version's f32 conv); and the split check."""
+    split 1, 2 and 3, f32 (probs 2e-5: K2's 3xTF32 blocks, sums in another
+    order) and bf16 (5e-3: the bench's parity gate; the kernels' sums in
+    another order can move an intermediate's bf16 rounding by an ulp); and
+    the split check."""
     from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4, zscore as k1
 
     errs = {}
@@ -623,6 +625,61 @@ def phase_k4(folded, cases: dict) -> dict:
             continue
         raise AssertionError(f"hybrid_ecgcnn took split={split} of 4 blocks")
     return errs
+
+
+def phase_k4_blocks(x_raw: torch.Tensor, folded) -> dict:
+    """Each of K4's bf16 ``wgmma`` launches against its plain block (an im2col
+    product of bf16-rounded operands with f32 sums, TF32 off) on the plain
+    chain's own activations at that block, at B = 1, 16 and 512, each timed:
+    block 0 from the raw record with ``zscore_stats`` (z-scored on load, the
+    plain side z-scored with the same stats, then padded), blocks 1 and 2 bf16
+    in and out, block 3's per-tile channel sums (its odd 625 rows).  Gates:
+    a bf16 output within 2^-8 of each value (one bf16 rounding, which a sum
+    in another order can move by an ulp) plus 2^-16 of the block's scale (the
+    largest |x| conv |w|, as ``k2_blocks``); a tile's sum within 2^-16 of
+    the scale times the pooled rows it adds."""
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4, zscore as k1
+    from ptbxl_torch.utils.device import highest_precision
+
+    blocks = k4.prepare_weights(folded, compute_dtype=torch.bfloat16)["blocks"]
+    by_batch = {}
+    for bsz in (1, 16, x_raw.shape[0]):
+        x = x_raw[:bsz].contiguous()
+        stats = k1.zscore_stats(x)
+        h_in, h = x, (x - stats[:, None, :, 0]) / stats[:, None, :, 1]
+        rows = []
+        for i, wp in enumerate(blocks):
+            w, b = folded[f"w{i}"], folded[f"b{i}"]
+            w2d = w.reshape(-1, w.shape[2])
+            last = i == len(blocks) - 1
+            with highest_precision():
+                hp = F.pad(h, (0, 0, k4.PAD, k4.PAD))
+                want = k4._im2col_block_plain(hp, w2d, b, torch.bfloat16)
+                scale = float(k4._im2col_block_plain(hp.abs(), w2d.abs(), torch.zeros_like(b),
+                                                     torch.bfloat16).max())
+            st = stats if i == 0 else None
+            got = k4.wgmma_conv_block(h_in, wp, b, st, last)
+            if last:
+                per = k4.wg_tile(wp.shape[1] * 16 // 15, w.shape[2])[1] // 2
+                want_s = torch.stack([want[:, j * per:(j + 1) * per].sum(1)
+                                      for j in range(got.shape[1])], 1)
+                tol = 2.0 ** -16 * scale * per
+                err = gate(f"wgmma block {i} sums B={bsz}", max_diff(got, want_s), tol)
+                excess = err
+            else:
+                tol = 2.0 ** -16 * scale
+                excess = float(((got.float() - want).abs() - 2.0 ** -8 * want.abs()).max())
+                gate(f"wgmma block {i} B={bsz} beyond one bf16 rounding", excess, tol)
+                err = max_diff(got, want)
+            rows.append({"block": i, "shape": [h.shape[1], w.shape[1], w.shape[2]],
+                         "out": "sums" if last else "bf16", "max_abs_err": err,
+                         "beyond_rounding": excess, "tol": tol, "scale": scale,
+                         "ms": time_ms(lambda: k4.wgmma_conv_block(h_in, wp, b, st, last))})
+            h_in = want.to(torch.bfloat16)  # the next conv reads the plain output in bf16
+            h = h_in.float()
+        by_batch[str(bsz)] = rows
+    torch.cuda.synchronize()
+    return {"phase": "k4_blocks", "batch": by_batch}
 
 
 def phase_k5(x_raw: torch.Tensor, gen: torch.Generator) -> dict:
@@ -1065,14 +1122,46 @@ def phase_pipeline() -> dict:
             "e2e": e2e}
 
 
+K4_KERNELS = ("zscore", "wgmma_conv_block", "sums_tail")  # the bf16 route's own kernels
+
+
 def split_breakdown(launches: list) -> dict:
-    """K4's per-launch device times split into the framework front (z-score,
-    cuDNN convs, pools, casts), each deep-block launch and the tail."""
-    deep = [ms for name, ms in launches if "tc_conv_block" in name]
-    tail = sum(ms for name, ms in launches if "tail_kernel" in name)
-    total = sum(ms for _, ms in launches)
-    return {"front_ms": total - sum(deep) - tail, "deep_block_ms": deep, "tail_ms": tail,
-            "total_ms": total, "launches": launches}
+    """K4's per-launch device times: the stats pass, each ``wgmma`` block and
+    the tail.  Raises if the route launched any kernel but the port's own
+    (no library conv, matmul or framework z-score)."""
+    other = [name for name, _ in launches if not any(k in name for k in K4_KERNELS)]
+    if other:
+        raise AssertionError(f"K4's bf16 route launched other kernels: {other}")
+    blocks = [ms for name, ms in launches if "wgmma_conv_block" in name]
+    return {"stats_ms": sum(ms for name, ms in launches if "zscore" in name),
+            "block_ms": blocks, "tail_ms": sum(ms for name, ms in launches if "sums_tail" in name),
+            "total_ms": sum(ms for _, ms in launches), "launches": launches}
+
+
+def k4_launch_bounds(b: int, folded) -> list:
+    """(name, bound (ms, by)) of each launch of K4's bf16 route on [b, 5000, 12]:
+    operations of each block (Cin as the model has it, not padded), each
+    input read once and each output written once (the raw f32 record and the
+    stats for block 0, bf16 activations, block 3's per-tile sums), weights."""
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+
+    x_bytes = b * T_FULL * LEADS * 4
+    out = [("zscore_stats", bound(6 * b * T_FULL * LEADS, x_bytes + b * LEADS * 8, PEAK_BF16))]
+    t, n = T_FULL, int(folded["n_blocks"])
+    for i in range(n):
+        w = folded[f"w{i}"]
+        cin, cout = w.shape[1], w.shape[2]
+        flops = 2 * 15 * cin * cout * 2 * (t // 2) * b
+        in_bytes = x_bytes + b * LEADS * 8 if i == 0 else b * t * cin * 2
+        if i == n - 1:
+            cin_p = -(-cin // 16) * 16
+            out_bytes = b * -(-2 * (t // 2) // k4.wg_tile(cin_p, cout)[1]) * cout * 4
+        else:
+            out_bytes = b * (t // 2) * cout * 2
+        out.append((f"block{i}", bound(flops, in_bytes + out_bytes + w.numel() * 2 + cout * 4,
+                                       PEAK_BF16)))
+        t //= 2
+    return out
 
 
 CROSSOVER_N = (1, 8, 16, 32, 64, 128, 256, 512, 1024)
@@ -1144,9 +1233,8 @@ def main(argv=None) -> int:
     from ptbxl_torch import bench as port_bench
     from ptbxl_torch.ops.kernels import _build, fused_ecgcnn as k2, relu_pool as k6, zscore as k1
     from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
-    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
+    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch_onepass
     from ptbxl_torch.tools import probe_layer_perf, probe_zscore
-    from ptbxl_torch.utils.device import highest_precision
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1241,6 +1329,8 @@ def main(argv=None) -> int:
                                "5": x_raw[:5].contiguous(), "2 T=500": x_odd})
     torch.cuda.synchronize()
     emit({"phase": "k4", "max_abs_err": k4_err})
+    k4_blocks = phase_k4_blocks(x_raw, folded)
+    emit(k4_blocks)
     k5_err = phase_k5(x_raw, gen)
     torch.cuda.synchronize()
     emit({"phase": "k5", "max_abs_err": k5_err})
@@ -1463,35 +1553,25 @@ def main(argv=None) -> int:
           "launches": {"conv_layer": layer_launches}, "rows": layer_rows})
     k4_times, k4_breakdown = {}, {}
     lib_bf16 = port_bench.build_forward("framework", "bf16", dev)
-    k4_weights = k4.prepare_weights(folded, 2, torch.bfloat16)
-
-    def front_exact(h):
-        with highest_precision():
-            return k4._front_plain(h, folded, 2, torch.bfloat16)
+    k4_weights = k4.prepare_weights(folded, compute_dtype=torch.bfloat16)
 
     with torch.no_grad():
         for b in (BIG, HYBRID_B):
             xb = raw_batch(b, gen)
             run_k4 = lambda: k4.hybrid_ecgcnn_logits(xb, folded, weights=k4_weights)  # noqa: E731
-            deep_flops = sum(2 * 15 * cin * cout * 2 * (t // 2) * b
-                             for t, cin, cout in ((1250, 64, 128), (625, 128, 256)))
-            h0 = zscore_per_lead_batch(xb)
             k4_times[b] = {
                 "ms": time_ms(run_k4, reps=5),
-                # the front as K4 runs it (cuDNN bf16 convs, bf16 out) and the
-                # exact alternative (bf16-rounded operands, f32 convs, TF32 off)
-                "front_ms": time_ms(lambda: k4._front(h0, folded, k4_weights["front"],
-                                                      torch.bfloat16), reps=5),
-                "front_exact_ms": time_ms(lambda: front_exact(h0), reps=3, warmup=1),
                 "plain_ms": time_ms(lambda: [k4.hybrid_ecgcnn_logits_plain(xc, folded)
                                              for xc in xb.split(BIG)], reps=2, warmup=1),
                 "library_ms": time_ms(lambda: lib_bf16(xb), reps=5),
                 # the hybrid forward does the fused forward's work: K2's count
                 "bound": bound(*k2_flops_bytes(xb, folded), PEAK_BF16),
-                "deep_blocks_bound": bound(deep_flops, b * 1250 * 64 * 4, PEAK_BF16),
+                "launch_bounds": k4_launch_bounds(b, folded),
+                # the stats pass alone (the profile of a K4 call can miss its first launch)
+                "stats_ms": time_ms(lambda: k1.zscore_stats(xb), reps=5),
             }
             k4_breakdown[b] = split_breakdown(launch_breakdown(run_k4))
-            del xb, h0
+            del xb
         k5_plain_ms = time_ms(lambda: k1.zscore_wide_plain(zs_batch, torch.bfloat16), reps=3,
                               warmup=1)
         # K5 and P3 against their plain versions at the probes' shapes and inputs,
@@ -1597,10 +1677,14 @@ def main(argv=None) -> int:
         "ms_bf16": t16["ms"], "bound_ms_bf16": t16["bound"][0],
         "library_bf16_ms": t16["library_ms"],
     })
-    # K4: the bench's hybrid row at B=8192 (B=512 beside it); launches on that row
+    # K4: the bench's hybrid row at B=8192 (B=512 beside it); launches on that row;
+    # each launch's ms beside its own bound (stats pass, four wgmma blocks, tail)
     t8, t5 = k4_times[HYBRID_B], k4_times[BIG]
+    bd8 = k4_breakdown[HYBRID_B]
+    per_launch = [{"launch": name, "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+                  for (name, bnd), ms in zip(t8["launch_bounds"], [t8["stats_ms"]] + bd8["block_ms"])]
     kernels.append({
-        "name": "hybrid_ecgcnn", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_ecgcnn.cu",
+        "name": "hybrid_ecgcnn", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_wgmma.cu",
         "replaces": "ptbxl_tpu/ops/pallas/hybrid_ecgcnn.py:63",
         "launches": hybrid_info["launches"]["hybrid_ecgcnn"],
         "launches_by_path": {"bench_hybrid_row": hybrid_info["launches"]["hybrid_ecgcnn"]},
@@ -1610,8 +1694,9 @@ def main(argv=None) -> int:
         "max_abs_err_b8192": hybrid_info["max_abs_err_vs_plain"],
         "ms": t8["ms"], "plain_ms": t8["plain_ms"], "bound_ms": t8["bound"][0],
         "bound_by": t8["bound"][1], "library_ms": t8["library_ms"], "batch": HYBRID_B,
-        "deep_blocks_ms": sum(k4_breakdown[HYBRID_B]["deep_block_ms"]),
-        "deep_blocks_bound_ms": t8["deep_blocks_bound"][0],
+        "per_launch": per_launch, "tail_ms": bd8["tail_ms"],
+        "deep_blocks_ms": sum(bd8["block_ms"][-2:]),
+        "deep_blocks_bound_ms": sum(r["bound_ms"] for r in per_launch[-2:]),
         "ms_b512": t5["ms"], "plain_ms_b512": t5["plain_ms"], "bound_ms_b512": t5["bound"][0],
         "library_ms_b512": t5["library_ms"],
     })
@@ -1664,8 +1749,12 @@ def main(argv=None) -> int:
             "bound_ms": total_bound,
             "bound_by": "operations" if 2 * n_ops >= total_bound else "bytes",
             "library_ms": sum(r["library_ms"] for r in prow), "batch": None,
+            # device time alone: each probe's calls replayed from a CUDA graph
+            "graph_ms": sum(r["graph_ms"] for r in prow),
+            "library_graph_ms": sum(r["library_graph_ms"] for r in prow),
             "per_probe": [{k: r[k] for k in ("probe", "err", "max_abs_err", "tol", "ms",
-                                             "plain_ms", "library_ms", "library", "bound")}
+                                             "graph_ms", "plain_ms", "library_ms",
+                                             "library_graph_ms", "library", "bound")}
                           for r in prow],
         })
     # P4: the four layers at the probe's batch; P3's two modes and cuDNN beside it

@@ -17,7 +17,9 @@ Rows (``bench.py`` line numbers):
   activations), ``kernel`` (K2, f32) and ``hybrid`` (K4, bf16; ``bench.py``'s
   ``block_b=16`` has no counterpart on the card), each gated by
   ``_parity_check`` (:231) and naming the gate in ``parity_gate``.  Headline
-  mode runs ``bf16_act`` at 16384 (the int8 rows are not ported yet).
+  mode runs the rows that can win on the card, as ``bench.py``'s runs only
+  the configurations that can win (:361-368): ``bf16_act`` at 16384 and the
+  hybrid at 8192 (the int8 rows are not ported yet).
 * the pipeline rows, which read the data layer on a synthetic PTB-XL tree
   (``ptbxl_torch/tools/synthetic_ptbxl.py``, 2048 records of [12, 5000],
   made once under the temp directory): ``bench_pipeline_stages`` (:1130,
@@ -176,7 +178,7 @@ def build_forward(path: str, dtype_name: str, device: torch.device) -> Forward:
         if path == "kernel":
             k2_weights = k2.prepare_weights(folded)
             return lambda x: k2.fused_ecgcnn_probs(x, folded, torch.float32, True, k2_weights)
-        weights = k4.prepare_weights(folded, 2, torch.bfloat16)
+        weights = k4.prepare_weights(folded, compute_dtype=torch.bfloat16)
         return lambda x: k4.hybrid_ecgcnn_probs(x, folded, torch.bfloat16, True, weights=weights)
     if dtype_name == "f32":
         model, _ = load_ecgcnn(CKPT, device=device, precision="highest")
@@ -214,7 +216,8 @@ def inference_configs(full: bool) -> List[Tuple[str, str, str, List[int]]]:
     elif SMOKE:
         configs = [("framework", "highest", "f32", [8]), ("framework", "default", "bf16", [8])]
     else:
-        configs = [("framework", "default", "bf16_act", [16384])]
+        configs = [("framework", "default", "bf16_act", [16384]),
+                   ("hybrid", "default", "bf16", [8192])]
     return [(p, prec, d, sorted({_n(b) for b in bs})) for p, prec, d, bs in configs]
 
 

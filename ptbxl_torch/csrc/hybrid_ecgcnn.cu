@@ -1,28 +1,23 @@
-// K4's deep conv blocks and P3's im2col layer: one conv block (conv k=15 with
-// bf16 operands and f32 sums, + bias, ReLU, floor MaxPool(2)) on tensor cores,
-// hand-written for Hopper.
+// P3's im2col layer: one conv block (conv k=15 with bf16 operands and f32
+// sums, + bias, ReLU, floor MaxPool(2)) on tensor cores with mma.sync,
+// hand-written for Hopper.  (K4's blocks ran on this kernel until they moved
+// to the wgmma block of csrc/hybrid_wgmma.cu; P3 and P4 keep it.)
 //
-// Replaces the deep-block part of ptbxl_tpu/ops/pallas/hybrid_ecgcnn.py
-// _make_tail_kernel (:63), launched by hybrid_ecgcnn_logits (:143, pallas_call
-// :214), and tools/probe_layer_perf.py make_pallas_layer (:52) in its
-// "im2col" mode.  Both build an im2col of 15 shifted slices, [t, 15*Cin], and
-// take one [t, 15*Cin] x [15*Cin, Cout] product in bf16 with f32 sums.
+// Replaces tools/probe_layer_perf.py make_pallas_layer (:52) in its "im2col"
+// mode: an im2col of 15 shifted slices, [t, 15*Cin], and one [t, 15*Cin] x
+// [15*Cin, Cout] product in bf16 with f32 sums.
 //
-// Bound on the H100: operations.  Deep blocks 2 and 3 of the ECGCNN are
-// 307.2 + 614.4 MFLOP a record against 989 TFLOP/s of dense bf16 (0.93 us a
-// record); their input, [1250, 64] f32, is 0.32 MB a record (0.10 us at
-// 3.35 TB/s).  So the product has to run on the tensor cores.
+// Bound on the H100: operations for the probe's layers 3 and 4 (307.2 +
+// 614.4 MFLOP a record against 989 TFLOP/s of dense bf16), bytes for its
+// layers 1 and 2.
 //
-// Design (a first kernel that is right; wgmma, TMA and fusing blocks are later
-// work): an implicit GEMM.  A block of 256 threads (8 warps, 4 along time x 2
+// Design: an implicit GEMM.  A block of 256 threads (8 warps, 4 along time x 2
 // along channels) owns BM = 128 conv rows of one record and BN output
 // channels.  It stages its input rows with their 14-row halo once, rounded to
 // bf16, in shared memory: row m of the im2col at column k*Cin + c is tile row
 // m + k at channel c, so each 16-wide slice of the reduction is a plain
 // 16 x 16 tile of shifted rows and ldmatrix reads it directly (no im2col is
-// ever written).  One record does not fit in shared memory (block 2's input
-// is 162 KB in bf16), so the time axis is tiled.  The weights, 245 KB and
-// 983 KB in bf16 at full width, do not fit either: they stream through a
+// ever written).  The time axis is tiled.  The weights stream through a
 // double buffer, one tap ([Cin, BN]) at a time, by cp.async while the
 // previous tap's products run.  The products are mma.sync m16n8k16 bf16 ->
 // f32 with the sums in registers.  Two neighbouring conv rows of a warp's

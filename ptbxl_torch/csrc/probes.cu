@@ -15,7 +15,12 @@
 // Bound on the H100: every probe moves at most ~3 MB, so each is bound by its
 // bytes at 3.35 TB/s (about a microsecond) and in practice by the launch
 // itself; the dots are 134 MFLOP (0.27 us at 495 TFLOP/s TF32, 2.0 us at
-// 67 TFLOP/s FP32, which bounds p9).
+// 67 TFLOP/s FP32, which bounds p9).  A call's time is mostly the host's:
+// measured by tools/probe_dispatch.py, a data-movement probe's kernel takes
+// 2-4 us of device time and its launch 13-20 us of host work.  So every entry keeps
+// the host path short: it sets the device only when the caller's differs
+// (cudaGetDevice, not cudaSetDevice on every call), and the Python side binds
+// each entry once and passes the raw stream handle (ops/kernels/probes.py).
 //
 // Precision: p1 and p2 run on the tensor cores in TF32 (operands rounded by
 // cvt.rna.tf32, mma.sync m16n8k8, f32 sums), the card's counterpart of the
@@ -115,38 +120,131 @@ dot_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b, float*
     }
 }
 
-// p9: the same product in full FP32 FMA; each thread owns 4 rows x 8 columns
-__global__ void __launch_bounds__(kDThreads)
+// p9: the same product in full FP32 FMA.  A block owns a 32 x 64 output tile
+// (128 blocks for p9's 2048 x 128, one an SM) and two halves of 128 threads,
+// each half one half of K and each thread 4 x 4 outputs from two float4 reads
+// of shared memory a k; the halves' sums are added at the end (eight warps an
+// SM hide the latencies four could not).  A half's K slices of 32 go through
+// its own ring of four in shared memory, three in flight while one is used:
+// by cp.async where the operand's contiguous axis is the tile's own (A along
+// m, B along n: p9's TN form), else through registers.  Each output is the
+// sum of two chains of fmaf over k in order.
+constexpr int kFM = 32, kFN = 64, kFK = 32, kFStages = 4, kFHalf = 128, kFThreads = 2 * kFHalf;
+constexpr int kFSlot = kFK * (kFM + kFN);                        // floats a ring slot
+constexpr size_t kFSmem = (size_t)2 * kFStages * kFSlot * sizeof(float);  // 96 KB
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+// as[k][m] = A(m0 + m, k0 + k), bs[k][n] = B(k0 + k, n0 + n), by the 128
+// threads of one half (lt its thread index)
+template <bool kAm, bool kBn>
+__device__ __forceinline__ void stage_fp32(float* as, float* bs, const float* __restrict__ a,
+                                           const float* __restrict__ b, int m0, int n0, int k0,
+                                           long sam, long sak, long sbk, long sbn, int lt) {
+  if (kAm) {
+    for (int i = lt; i < kFK * kFM / 4; i += kFHalf) {
+      const int k = i / (kFM / 4), m = (i % (kFM / 4)) * 4;
+      cp_async16(as + k * kFM + m, a + (m0 + m) + (long)(k0 + k) * sak);
+    }
+  } else {
+    for (int i = lt; i < kFK * kFM; i += kFHalf) {
+      const int m = i / kFK, k = i % kFK;  // k fastest: reads along the contiguous k
+      as[k * kFM + m] = a[(long)(m0 + m) * sam + (long)(k0 + k) * sak];
+    }
+  }
+  if (kBn) {
+    for (int i = lt; i < kFK * kFN / 4; i += kFHalf) {
+      const int k = i / (kFN / 4), n = (i % (kFN / 4)) * 4;
+      cp_async16(bs + k * kFN + n, b + (long)(k0 + k) * sbk + (n0 + n));
+    }
+  } else {
+    for (int i = lt; i < kFK * kFN; i += kFHalf) {
+      const int n = i / kFK, k = i % kFK;
+      bs[k * kFN + n] = b[(long)(k0 + k) * sbk + (long)(n0 + n) * sbn];
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void half_sync(int half) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(kFHalf) : "memory");
+}
+
+template <bool kAm, bool kBn>
+__global__ void __launch_bounds__(kFThreads)
 dot_fp32_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
                 int N, int K, long sam, long sak, long sbk, long sbn) {
-  __shared__ float as[kDM * kAS];
-  __shared__ float bs[kDK * kBS];
-  const int m0 = blockIdx.x * kDM, n0 = blockIdx.y * kDN;
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;  // 8 x 16 threads
-  float acc[4][8] = {};
-  for (int k0 = 0; k0 < K; k0 += kDK) {
-    __syncthreads();
-    stage_dot(as, bs, a, b, m0, n0, k0, sam, sak, sbk, sbn);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kDK; ++k) {
-      float av[4], bv[8];
+  extern __shared__ __align__(16) float fsm[];
+  const int half = threadIdx.x / kFHalf, lt = threadIdx.x % kFHalf;
+  float* ring = fsm + half * kFStages * kFSlot;  // slot s: A at s * kFSlot, B after it
+  const int m0 = blockIdx.x * kFM, n0 = blockIdx.y * kFN;
+  const int tm = (lt / 16) * 4, tn = (lt % 16) * 4;
+  const int nk = K / kFK, nk0 = (nk + 1) / 2;
+  const int k_lo = half ? nk0 : 0, n = half ? nk - nk0 : nk0;  // this half's K slices
+  float acc[4][4] = {};
+  for (int s = 0; s < kFStages - 1; ++s) {  // every stage commits a group, empty or not
+    float* slot = ring + s * kFSlot;
+    if (s < n)
+      stage_fp32<kAm, kBn>(slot, slot + kFK * kFM, a, b, m0, n0, (k_lo + s) * kFK, sam, sak, sbk,
+                           sbn, lt);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int kt = 0; kt < n; ++kt) {
+    const int ahead = kt + kFStages - 1;
+    if (ahead < n) {
+      float* slot = ring + (ahead % kFStages) * kFSlot;
+      stage_fp32<kAm, kBn>(slot, slot + kFK * kFM, a, b, m0, n0, (k_lo + ahead) * kFK, sam, sak,
+                           sbk, sbn, lt);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kFStages - 1));
+    half_sync(half);
+    const float* as = ring + (kt % kFStages) * kFSlot;
+    const float* bs = as + kFK * kFM;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[(ty * 4 + i) * kAS + k];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = bs[k * kBS + tx * 8 + j];
+    for (int k = 0; k < kFK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(as + k * kFM + tm);
+      const float4 bv = *reinterpret_cast<const float4*>(bs + k * kFN + tn);
+      const float ar[4] = {av.x, av.y, av.z, av.w}, br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
     }
+    half_sync(half);  // this slot is refilled on the next iteration
   }
+  __syncthreads();  // both halves are done with their rings
+  float* red = fsm;  // [kFHalf][16]: the second half's sums
+  if (half) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; j += 4)
-      *reinterpret_cast<float4*>(c + (long)(m0 + ty * 4 + i) * N + n0 + tx * 8 + j) =
-          make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      for (int j = 0; j < 4; ++j) red[lt * 16 + i * 4 + j] = acc[i][j];
+  }
+  __syncthreads();
+  if (!half) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(c + (long)(m0 + tm + i) * N + n0 + tn) =
+          make_float4(acc[i][0] + red[lt * 16 + i * 4], acc[i][1] + red[lt * 16 + i * 4 + 1],
+                      acc[i][2] + red[lt * 16 + i * 4 + 2], acc[i][3] + red[lt * 16 + i * 4 + 3]);
+  }
+}
+
+template <bool kAm, bool kBn>
+cudaError_t launch_fp32(dim3 grid, cudaStream_t st, const float* a, const float* b, float* c, int N,
+                        int K, long sam, long sak, long sbk, long sbn) {
+  cudaError_t err = cudaFuncSetAttribute(dot_fp32_kernel<kAm, kBn>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFSmem);
+  if (err != cudaSuccess) return err;
+  dot_fp32_kernel<kAm, kBn><<<grid, kFThreads, kFSmem, st>>>(a, b, c, N, K, sam, sak, sbk, sbn);
+  return cudaGetLastError();
 }
 
 // -- p3, p3b: out[c, t] = x[c, (t - sl) mod T] + x[(c - ss) mod C, t]; a block
@@ -276,6 +374,15 @@ int grid_for(long n) {
   return (int)(g < 4096 ? (g > 0 ? g : 1) : 4096);
 }
 
+// the calling thread's device, set only when it differs (a launch's host
+// cost is most of what these probes measure)
+cudaError_t ensure_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return err;
+  return cur == device ? cudaSuccess : cudaSetDevice(device);
+}
+
 cudaError_t with_smem(const void* kernel, size_t bytes) {
   if (bytes > 232448) return cudaErrorInvalidValue;
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -292,7 +399,7 @@ extern "C" {
 int ptbxl_probe_dot(int device, const void* a, const void* b, void* c, int M, int N, int K,
                     long long sam, long long sak, long long sbk, long long sbn, int tf32,
                     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || N <= 0 || K <= 0 || M % kDM || N % kDN || K % kDK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -300,17 +407,23 @@ int ptbxl_probe_dot(int device, const void* a, const void* b, void* c, int M, in
   const float* as = static_cast<const float*>(a);
   const float* bs = static_cast<const float*>(b);
   float* cs = static_cast<float*>(c);
-  if (tf32)
+  if (tf32) {
     dot_tf32_kernel<<<grid, kDThreads, 0, st>>>(as, bs, cs, N, K, sam, sak, sbk, sbn);
-  else
-    dot_fp32_kernel<<<grid, kDThreads, 0, st>>>(as, bs, cs, N, K, sam, sak, sbk, sbn);
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  // cp.async needs 16-byte rows: the contiguous axis along the tile, 4-aligned strides
+  const bool am = sam == 1 && sak % 4 == 0, bn = sbn == 1 && sbk % 4 == 0;
+  const dim3 fgrid(M / kFM, N / kFN);
+  if (am && bn) return (int)launch_fp32<true, true>(fgrid, st, as, bs, cs, N, K, sam, sak, sbk, sbn);
+  if (am) return (int)launch_fp32<true, false>(fgrid, st, as, bs, cs, N, K, sam, sak, sbk, sbn);
+  if (bn) return (int)launch_fp32<false, true>(fgrid, st, as, bs, cs, N, K, sam, sak, sbk, sbn);
+  return (int)launch_fp32<false, false>(fgrid, st, as, bs, cs, N, K, sam, sak, sbk, sbn);
 }
 
 // p3, p3b: out [C, T] = roll(x, sl, axis=1) + roll(x, ss, axis=0)
 int ptbxl_probe_roll_add(int device, const void* x, void* out, int C, int T, int sl, int ss,
                          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (C <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)T * 4;
@@ -325,7 +438,7 @@ int ptbxl_probe_roll_add(int device, const void* x, void* out, int C, int T, int
 // p4: out [KS*C, T], block k = roll(x, -k, axis=1)
 int ptbxl_probe_subblock(int device, const void* x, void* out, int C, int T, int KS,
                          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (C <= 0 || T <= 0 || KS <= 0 || KS > T) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)T * 4;
@@ -338,7 +451,7 @@ int ptbxl_probe_subblock(int device, const void* x, void* out, int C, int T, int
 // p5, p5b2: max of stride-2 slices, along rows (lane = 0) or columns (lane = 1)
 int ptbxl_probe_pool_slices(int device, const void* x, void* y, int R, int W, int lane,
                             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || W <= 0 || (lane ? W % 2 : R % 2)) return (int)cudaErrorInvalidValue;
   const long n = (long)R * W / 2;
@@ -349,7 +462,7 @@ int ptbxl_probe_pool_slices(int device, const void* x, void* y, int R, int W, in
 
 // p5b: max over axis 1 of x.reshape(R/2, 2, W)
 int ptbxl_probe_pool_rows_reshape(int device, const void* x, void* y, int R, int W, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || W <= 0 || R % 2) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)2 * W * 4;
@@ -362,7 +475,7 @@ int ptbxl_probe_pool_rows_reshape(int device, const void* x, void* y, int R, int
 // p5c: max over axis 2 of x.reshape(R, W/2, 2)
 int ptbxl_probe_pool_lanes_reshape(int device, const void* x, void* y, int R, int W,
                                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || W <= 0 || W % 2) return (int)cudaErrorInvalidValue;
   const long n = (long)R * W / 2;
@@ -374,7 +487,7 @@ int ptbxl_probe_pool_lanes_reshape(int device, const void* x, void* y, int R, in
 // p6: out [C, Wo] = sum_{k < KS} x[:, k : k + Wo]; Wo + KS - 1 <= T
 int ptbxl_probe_window_sum(int device, const void* x, void* out, int C, int T, int Wo, int KS,
                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (C <= 0 || Wo <= 0 || KS <= 0 || Wo + KS - 1 > T) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)T * 4;
@@ -386,7 +499,7 @@ int ptbxl_probe_window_sum(int device, const void* x, void* out, int C, int T, i
 
 // p7: out [To, KS*C] = concat_k x[k : k + To] along columns; x [To + KS - 1, C]
 int ptbxl_probe_concat(int device, const void* x, void* out, int To, int C, int KS, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (To <= 0 || C <= 0 || KS <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(kCR + KS - 1) * C * 4;
@@ -398,7 +511,7 @@ int ptbxl_probe_concat(int device, const void* x, void* out, int To, int C, int 
 
 // p8: out [W, R] = x^T, x [R, W]
 int ptbxl_probe_transpose(int device, const void* x, void* out, int R, int W, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   dim3 grid((W + 31) / 32, (R + 31) / 32);

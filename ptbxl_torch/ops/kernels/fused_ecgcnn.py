@@ -285,13 +285,12 @@ def _check(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype) -> None:
             raise ValueError(f"folded[{key!r}] must be contiguous f32 on {x.device}")
 
 
-def _backbone(lib, x: torch.Tensor, folded: Folded, bf16: int, normalize: bool, stream: int,
+def _backbone(x: torch.Tensor, folded: Folded, bf16: int, normalize: bool,
               weights: Optional[list]) -> torch.Tensor:
     """Launch ``zscore_stats`` (when ``normalize``) and one conv-block kernel a block:
     the 3xTF32 block with ``weights`` (``prepare_weights``, built here when None)
-    in f32, the bf16 block in bf16."""
+    in f32, the bf16 block in bf16 (CUDA tensors only)."""
     b, t, _ = x.shape
-    dev = x.get_device()
     stats = zscore_stats(x) if normalize else None
     n_blocks = int(folded["n_blocks"])
     if not bf16:
@@ -305,14 +304,39 @@ def _backbone(lib, x: torch.Tensor, folded: Folded, bf16: int, normalize: bool, 
         if bf16:
             cin, cout = w.shape[1], w.shape[2]
             y = torch.empty((b, t // 2, cout), dtype=torch.float32, device=x.device)
+            lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
             err = lib.ptbxl_conv_block_bf16(
-                dev, h.data_ptr(), None if st is None else st.data_ptr(), w.data_ptr(),
-                bias.data_ptr(), y.data_ptr(), b, t, cin, cout, stream)
+                x.get_device(), h.data_ptr(), None if st is None else st.data_ptr(),
+                w.data_ptr(), bias.data_ptr(), y.data_ptr(), b, t, cin, cout,
+                torch.cuda.current_stream(x.device).cuda_stream)
             _build.check(lib, err, f"conv block {i} launch")
         else:
             y = conv_block_tf32x3(h, weights[i], bias, st)
         h, t = y, t // 2
     return h
+
+
+def card_logits(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype,
+                normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+    """K2's launch sequence, not counted: ``_backbone``, then the tail kernel
+    (``ptbxl_tail``: mean over T, proj, head) -> logits [B, L].  K4 runs it
+    as its f32 route.  On CPU tensors (f32) each launch takes its plain
+    version: the 3xTF32 blocks' and an exact-f32 tail."""
+    bf16 = int(compute_dtype == torch.bfloat16)
+    h = _backbone(x, folded, bf16, normalize, weights)
+    pw, hw = folded["proj_w"], folded["head_w"]
+    if h.device.type == "cpu":
+        with highest_precision():
+            return (h.mean(1) @ pw + folded["proj_b"]) @ hw + folded["head_b"]
+    b, num_labels = h.shape[0], hw.shape[1]
+    logits = torch.empty((b, num_labels), dtype=torch.float32, device=h.device)
+    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
+    err = lib.ptbxl_tail(
+        h.get_device(), h.data_ptr(), pw.data_ptr(), folded["proj_b"].data_ptr(), hw.data_ptr(),
+        folded["head_b"].data_ptr(), logits.data_ptr(), b, h.shape[1], pw.shape[0], pw.shape[1],
+        num_labels, bf16, torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(lib, err, "tail launch")
+    return logits
 
 
 def fused_ecgcnn_logits(x: torch.Tensor, folded: Folded,
@@ -329,21 +353,9 @@ def fused_ecgcnn_logits(x: torch.Tensor, folded: Folded,
         return fused_ecgcnn_logits_plain(x, folded, compute_dtype, normalize)
     _check(x, folded, compute_dtype)
     x = x.contiguous()
-    b = x.shape[0]
-    num_labels = folded["head_b"].shape[0]
-    if b == 0:
-        return torch.empty((0, num_labels), dtype=torch.float32, device=x.device)
-    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    bf16 = int(compute_dtype == torch.bfloat16)
-    h = _backbone(lib, x, folded, bf16, normalize, stream, weights)
-    pw, hw = folded["proj_w"], folded["head_w"]
-    logits = torch.empty((b, num_labels), dtype=torch.float32, device=x.device)
-    err = lib.ptbxl_tail(
-        x.get_device(), h.data_ptr(), pw.data_ptr(), folded["proj_b"].data_ptr(), hw.data_ptr(),
-        folded["head_b"].data_ptr(), logits.data_ptr(), b, h.shape[1], pw.shape[0], pw.shape[1],
-        num_labels, bf16, stream)
-    _build.check(lib, err, "tail launch")
+    if x.shape[0] == 0:
+        return torch.empty((0, folded["head_b"].shape[0]), dtype=torch.float32, device=x.device)
+    logits = card_logits(x, folded, compute_dtype, normalize, weights)
     launches += 1
     return logits
 
@@ -378,10 +390,8 @@ def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
     num_labels = folded["head_b"].shape[0]
     if b == 0:
         return torch.empty((0, num_labels), dtype=torch.float32, device=x.device)
-    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     bf16 = int(compute_dtype == torch.bfloat16)
-    h = _backbone(lib, x, folded, bf16, normalize, stream, weights)
+    h = _backbone(x, folded, bf16, normalize, weights)
     pw, w1, w2 = folded["proj_w"], folded["fc1_w"], folded["fc2_w"]
     c, f, h1, hid = pw.shape[0], pw.shape[1], w1.shape[1], w2.shape[1]
     want = {"proj_w": (h.shape[2], f), "fc2_w": (h1, hid), "film_w": (hid, 2 * f),
@@ -392,9 +402,11 @@ def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
     ptrs = [folded[f"{n}_{s}"].data_ptr() for n in ("proj", "fc1", "fc2", "film", "head")
             for s in "wb"]
     logits = torch.empty((b, num_labels), dtype=torch.float32, device=x.device)
+    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
     err = lib.ptbxl_mm_tail(
         x.get_device(), h.data_ptr(), *ptrs, demo.data_ptr(), logits.data_ptr(),
-        b, h.shape[1], c, f, d_in, h1, hid, num_labels, bf16, stream)
+        b, h.shape[1], c, f, d_in, h1, hid, num_labels, bf16,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "multimodal tail launch")
     launches_mm += 1
     return logits

@@ -29,11 +29,18 @@ Operations (f32 throughout):
 
 A CPU tensor takes the plain version (``*_plain``); a CUDA tensor launches
 the kernel or raises.  ``launches`` counts kernel launches on the card.
+
+The launch path (``_launch``) is most of a probe call's time, so it is kept
+short: each C entry is bound once per process (``_entry``), the current
+stream's raw handle is read without building a ``torch.cuda.Stream``, and the
+inputs' dtype, layout and device are checked in one pass; the C side sets the
+device only when it differs.  ``tools/probe_dispatch.py`` times the parts.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Dict
 
 import torch
 
@@ -65,24 +72,41 @@ _SIGNATURES = {
 }
 
 
-def _launch(entry: str, out_shape, *tensors_and_args) -> torch.Tensor:
-    """Launch ``entry`` on the first tensor's device: ``(device, inputs..., out,
-    ints..., stream)``; inputs must be contiguous f32 CUDA tensors."""
+_entries: Dict[str, Callable[..., int]] = {}  # C entry name -> bound ctypes function
+
+
+def _entry(name: str) -> Callable[..., int]:
+    """The C entry ``name``, bound once per process."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(_build.load_library("probes", _SIGNATURES), name)
+    return fn
+
+
+def _raw_stream(device_index: int) -> int:
+    """The current CUDA stream's handle, without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def _launch(entry: str, out_shape, tensors, ints) -> torch.Tensor:
+    """Launch ``entry`` on the first tensor's device as ``(device, tensors...,
+    out, ints..., stream)``.  The tensors must be contiguous f32 on one CUDA
+    device, checked in one pass: a wrong dtype or layout raises ``TypeError``,
+    a CPU tensor ``RuntimeError``."""
     global launches
-    tensors = [v for v in tensors_and_args if isinstance(v, torch.Tensor)]
-    ints = [v for v in tensors_and_args if not isinstance(v, torch.Tensor)]
-    x = tensors[0]
-    if x.device.type != "cuda":
-        raise RuntimeError(f"probe kernels need a CUDA tensor, got {x.device}")
+    dev = tensors[0].device
     for v in tensors:
-        if v.device != x.device or v.dtype != torch.float32 or not v.is_contiguous():
-            raise TypeError(f"probe inputs must be contiguous f32 on {x.device}, "
+        if v.dtype != torch.float32 or not v.is_contiguous() or v.device != dev:
+            raise TypeError(f"probe inputs must be contiguous f32 on {dev}, "
                             f"got {v.dtype} {tuple(v.shape)} on {v.device}")
-    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
-    lib = _build.load_library("probes", _SIGNATURES)
-    err = getattr(lib, entry)(x.get_device(), *[v.data_ptr() for v in tensors], out.data_ptr(),
-                              *ints, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, f"{entry} launch")
+    idx = tensors[0].get_device()
+    if idx < 0:
+        raise RuntimeError(f"probe kernels need a CUDA tensor, got {dev}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    err = _entry(entry)(idx, *[v.data_ptr() for v in tensors], out.data_ptr(), *ints,
+                        _raw_stream(idx))
+    if err:
+        _build.check(_build.load_library("probes", _SIGNATURES), err, f"{entry} launch")
     launches += 1
     return out
 
@@ -124,8 +148,7 @@ def _dot(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int, strides, prec
     _check_precision(precision)
     if m % 64 or n % 64 or k % 32:
         raise ValueError(f"probe dot needs M, N % 64 == 0 and K % 32 == 0, got {m}, {n}, {k}")
-    return _launch("ptbxl_probe_dot", (m, n), a, b, m, n, k, *strides,
-                   int(precision == "tf32"))
+    return _launch("ptbxl_probe_dot", (m, n), (a, b), (m, n, k, *strides, int(precision == "tf32")))
 
 
 def tn_dot(a: torch.Tensor, b: torch.Tensor, precision: str = "tf32") -> torch.Tensor:
@@ -159,7 +182,7 @@ def roll_add(x: torch.Tensor, lane_shift: int, sublane_shift: int) -> torch.Tens
     if x.device.type == "cpu":
         return roll_add_plain(x, lane_shift, sublane_shift)
     c, t = x.shape
-    return _launch("ptbxl_probe_roll_add", (c, t), x, c, t, lane_shift, sublane_shift)
+    return _launch("ptbxl_probe_roll_add", (c, t), (x,), (c, t, lane_shift, sublane_shift))
 
 
 def subblock_rolls_plain(x: torch.Tensor, ks: int = 15) -> torch.Tensor:
@@ -171,7 +194,7 @@ def subblock_rolls(x: torch.Tensor, ks: int = 15) -> torch.Tensor:
     if x.device.type == "cpu":
         return subblock_rolls_plain(x, ks)
     c, t = x.shape
-    return _launch("ptbxl_probe_subblock", (ks * c, t), x, c, t, ks)
+    return _launch("ptbxl_probe_subblock", (ks * c, t), (x,), (c, t, ks))
 
 
 def _check_pair_axis(x: torch.Tensor, axis: int) -> None:
@@ -193,7 +216,7 @@ def pool_slices(x: torch.Tensor, axis: int) -> torch.Tensor:
     _check_pair_axis(x, axis)
     r, w = x.shape
     shape = (r // 2, w) if axis == 0 else (r, w // 2)
-    return _launch("ptbxl_probe_pool_slices", shape, x, r, w, axis)
+    return _launch("ptbxl_probe_pool_slices", shape, (x,), (r, w, axis))
 
 
 def pool_reshape_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -212,8 +235,8 @@ def pool_reshape(x: torch.Tensor, axis: int) -> torch.Tensor:
     _check_pair_axis(x, axis)
     r, w = x.shape
     if axis == 0:
-        return _launch("ptbxl_probe_pool_rows_reshape", (r // 2, w), x, r, w)
-    return _launch("ptbxl_probe_pool_lanes_reshape", (r, w // 2), x, r, w)
+        return _launch("ptbxl_probe_pool_rows_reshape", (r // 2, w), (x,), (r, w))
+    return _launch("ptbxl_probe_pool_lanes_reshape", (r, w // 2), (x,), (r, w))
 
 
 def window_sum_plain(x: torch.Tensor, width: int, ks: int = 15) -> torch.Tensor:
@@ -230,7 +253,7 @@ def window_sum(x: torch.Tensor, width: int, ks: int = 15) -> torch.Tensor:
     c, t = x.shape
     if width + ks - 1 > t:
         raise ValueError(f"window_sum: width {width} + {ks - 1} > T {t}")
-    return _launch("ptbxl_probe_window_sum", (c, width), x, c, t, width, ks)
+    return _launch("ptbxl_probe_window_sum", (c, width), (x,), (c, t, width, ks))
 
 
 def shifted_concat_plain(x: torch.Tensor, ks: int = 15) -> torch.Tensor:
@@ -247,7 +270,7 @@ def shifted_concat(x: torch.Tensor, ks: int = 15) -> torch.Tensor:
     t = rows - ks + 1
     if t <= 0:
         raise ValueError(f"shifted_concat: {rows} rows < ks = {ks}")
-    return _launch("ptbxl_probe_concat", (t, ks * c), x, t, c, ks)
+    return _launch("ptbxl_probe_concat", (t, ks * c), (x,), (t, c, ks))
 
 
 def transpose_plain(x: torch.Tensor) -> torch.Tensor:
@@ -259,4 +282,4 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return transpose_plain(x)
     r, w = x.shape
-    return _launch("ptbxl_probe_transpose", (w, r), x, r, w)
+    return _launch("ptbxl_probe_transpose", (w, r), (x,), (r, w))

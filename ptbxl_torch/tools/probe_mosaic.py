@@ -29,6 +29,7 @@ import torch
 
 from ptbxl_torch.bench import Clock
 from ptbxl_torch.ops.kernels import probes as kp
+from ptbxl_torch.tools.probe_dispatch import graph_ms
 from ptbxl_torch.utils.device import resolve_device
 
 # H100 SXM (data sheet): TF32 and FP32 (no tensor cores) dense rates, HBM3
@@ -172,11 +173,13 @@ def run_probe(p: Probe, device: torch.device, iters: int = 20, clock: Optional[C
     row["bound"] = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
     with torch.no_grad():
         row["ms"] = clock.ms(lambda: p.kernel(*xs), iters)
+        row["graph_ms"] = graph_ms(lambda: p.kernel(*xs), iters, device)
         row["plain_ms"] = clock.ms(lambda: p.plain(*xs), max(1, iters // 4))
         saved = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = p.peak == PEAK_TF32  # the library dot's TF32
         try:
             row["library_ms"] = clock.ms(lambda: p.library(*xs), iters)
+            row["library_graph_ms"] = graph_ms(lambda: p.library(*xs), iters, device)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = saved
     row["library"] = p.library_name
@@ -186,10 +189,12 @@ def run_probe(p: Probe, device: torch.device, iters: int = 20, clock: Optional[C
 def line(row: dict, cuda: bool) -> str:
     tag = "PASS" if row["ok"] else "FAIL"
     unit = "device us" if cuda else "host us"
+    graph = ("" if row.get("graph_ms") is None else
+             f", in a CUDA graph {row['graph_ms'] * 1e3:.1f} / {row['library_graph_ms'] * 1e3:.1f}")
     return (f"[{tag}] {row['label']}: err={row['err']:.2e} | vs plain "
             f"{row['max_abs_err']:.2e} <= {row['tol']:.1e} | {row['ms'] * 1e3:.1f} {unit} "
-            f"(plain {row['plain_ms'] * 1e3:.1f}, {row['library']} {row['library_ms'] * 1e3:.1f}, "
-            f"bound {row['bound'][0] * 1e3:.2f} by {row['bound'][1]})")
+            f"(plain {row['plain_ms'] * 1e3:.1f}, {row['library']} {row['library_ms'] * 1e3:.1f}"
+            f"{graph}, bound {row['bound'][0] * 1e3:.2f} by {row['bound'][1]})")
 
 
 def run(probes: Sequence[Probe], device: torch.device, iters: int = 20) -> List[dict]:

@@ -90,10 +90,12 @@ def test_every_inference_row_is_parity_gated(full_run):
 
 def test_full_table_matches_the_reference(monkeypatch):
     """The ``--full`` configurations of ``bench_inference`` (bench.py:346-368),
-    int8 rows aside; headline mode runs ``bf16_act`` at 16384."""
+    int8 rows aside; headline mode runs the rows that can win on the card,
+    ``bf16_act`` at 16384 and the hybrid engine at 8192."""
     monkeypatch.setattr(bench, "SMOKE", False)
     assert bench.inference_configs(True) == FULL_TABLE
-    assert bench.inference_configs(False) == [("framework", "default", "bf16_act", [16384])]
+    assert bench.inference_configs(False) == [("framework", "default", "bf16_act", [16384]),
+                                              ("hybrid", "default", "bf16", [8192])]
 
 
 def test_regression_gate_against_a_prior_sidecar(full_run, tmp_path):

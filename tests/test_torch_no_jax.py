@@ -33,6 +33,8 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.ops.kernels.probes, ptbxl_torch.tools.probe_mosaic\n"
         "import ptbxl_torch.tools.probe_mosaic2, ptbxl_torch.tools.probe_sublane_conv\n"
         "import ptbxl_torch.tools.synthetic_ptbxl, ptbxl_torch.config\n"
+        "import ptbxl_torch.tools.probe_hybrid, ptbxl_torch.tools.probe_dispatch\n"
+        "import ptbxl_torch.tools.tune_wgmma\n"
         "import ptbxl_torch.io.wfdb_io, ptbxl_torch.io.native, ptbxl_torch.utils.table\n"
         "import ptbxl_torch.utils.label_maps, ptbxl_torch.data, ptbxl_torch.data.manifest\n"
         "import ptbxl_torch.data.cache, ptbxl_torch.data.datasets\n"

@@ -155,3 +155,35 @@ def test_sublane_conv_tool_runs_on_the_host(monkeypatch, capsys):
     assert "p4" in out and "p3_im2col" in out and "cudnn" in out and "bound" in out
     assert probe_sublane_conv.bound(5000, 32, 16, 2048) == pytest.approx(
         ((2048 * 16 * 5014 + 2048 * 32 * 2500 + 15 * 16 * 32 + 32) * 4 / 3.35e12 * 1e3, "bytes"))
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "contiguity"])
+def test_launch_path_checks_in_one_pass(case):
+    """The probes' launch path raises before any launch: a CPU tensor (the
+    wrappers take the plain versions for those; ``_launch`` itself refuses
+    them), a wrong dtype, a non-contiguous tensor."""
+    x = torch.zeros(64, 128)
+    err = RuntimeError
+    if case == "dtype":
+        x, err = x.double(), TypeError
+    elif case == "contiguity":
+        x, err = x.t(), TypeError
+    before = kp.launches
+    with pytest.raises(err, match="CUDA tensor" if case == "cpu" else "contiguous f32"):
+        kp._launch("ptbxl_probe_transpose", (128, 64), (x,), (64, 128))
+    assert kp.launches == before
+
+
+def test_launch_path_counts_launches(monkeypatch):
+    """One count a launch; the entry gets (device, inputs..., out, ints...,
+    stream) with the entry bound once and the raw stream handle.  The device
+    index and the C entry are stand-ins here (no card)."""
+    calls = []
+    monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 0)
+    monkeypatch.setattr(kp, "_raw_stream", lambda idx: 1234)
+    monkeypatch.setattr(kp, "_entries", {"ptbxl_probe_roll_add": lambda *a: calls.append(a) or 0})
+    x = torch.zeros(8, 16)
+    before = kp.launches
+    out = kp._launch("ptbxl_probe_roll_add", (8, 16), (x,), (8, 16, -5, 3))
+    assert kp.launches == before + 1 and out.shape == (8, 16)
+    assert calls == [(0, x.data_ptr(), out.data_ptr(), 8, 16, -5, 3, 1234)]
