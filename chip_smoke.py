@@ -7,8 +7,9 @@ Builds the hand-written kernels from ``ptbxl_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (K1 z-score, K2 ECGCNN
 forward and each of its four 3xTF32 conv blocks, K3 FiLM multimodal forward,
 K6 ReLU -> MaxPool backward, K4 hybrid forward and each of its four ``wgmma``
-conv blocks, K5 wide z-score, P3 and P4 conv layers, the 13 P1/P2 probes,
-each probe also timed in a CUDA graph), drives
+conv blocks, K5 wide z-score, P3 and P4 conv layers (both on K4's ``wgmma``
+block: P3's output on a zero-padded input also bit for bit against K4's
+launch), the 13 P1/P2 probes, each probe also timed in a CUDA graph), drives
 the main paths (``Predictor`` on the baseline and AF checkpoints, then on the
 multimodal checkpoint with demo vectors, Grad-CAM and demo importance on both,
 then ``train`` on the baseline ECGCNN at full width with a reload of its best
@@ -712,10 +713,15 @@ def phase_k5(x_raw: torch.Tensor, gen: torch.Generator) -> dict:
     return errs
 
 
-def phase_p3(gen: torch.Generator) -> dict:
+def phase_p3(gen: torch.Generator) -> tuple:
     """P3's layer in both modes against ``conv_layer_plain`` on the four layers
     at B=16.  Gate 1e-4: bf16 products are exact in f32, so the two sides
-    differ only in the order of f32 sums of up to 1,920 products (outputs O(1))."""
+    differ only in the order of f32 sums of up to 1,920 products (outputs O(1)).
+    Then each layer's ``im2col`` mode (the ``wgmma`` block on a VALID f32
+    input) on a zero-padded input of bf16 values, rounded to bf16, against
+    K4's launch of the same block (``wgmma_conv_block``, SAME) on the unpadded
+    input at B=16: bit for bit, since both run the same tiles, staged rows
+    and k16 steps in the same order (block 0 reads f32, the others bf16)."""
     from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
     from ptbxl_torch.tools.probe_layer_perf import LAYERS, make_layer
 
@@ -729,7 +735,19 @@ def phase_p3(gen: torch.Generator) -> dict:
                 raise AssertionError(f"conv_layer {mode}: shape {tuple(got.shape)}")
             key = f"({t_in},{cin},{cout}) {mode}"
             errs[key] = gate(f"conv_layer {key}", max_diff(got, want), 1e-4)
-    return errs
+    differ = {}
+    for t_in, cin, cout in LAYERS:
+        x, w, b = make_layer(t_in, cin, cout, 16, torch.device("cuda"))
+        xb = x[:, k4.PAD:k4.PAD + t_in].to(torch.bfloat16)
+        layer = k4.conv_layer(F.pad(xb.float(), (0, 0, k4.PAD, k4.PAD)), w, b).to(torch.bfloat16)
+        block = k4.wgmma_conv_block(xb.float() if cin % 16 else xb, k4.wg_weight(
+            w.view(k4.K, cin, cout)), b)
+        key = f"({t_in},{cin},{cout})"
+        differ[key] = int((layer.view(torch.int16) != block.view(torch.int16)).sum())
+        if layer.shape != block.shape or differ[key]:
+            raise AssertionError(f"conv_layer {key} vs K4's wgmma block: {differ[key]} of "
+                                 f"{block.numel()} bf16 values differ")
+    return errs, differ
 
 
 def phase_hybrid(folded) -> dict:
@@ -1334,9 +1352,9 @@ def main(argv=None) -> int:
     k5_err = phase_k5(x_raw, gen)
     torch.cuda.synchronize()
     emit({"phase": "k5", "max_abs_err": k5_err})
-    p3_err = phase_p3(gen)
+    p3_err, p3_vs_k4 = phase_p3(gen)
     torch.cuda.synchronize()
-    emit({"phase": "p3", "max_abs_err": p3_err})
+    emit({"phase": "p3", "max_abs_err": p3_err, "bf16_values_differing_from_k4_block": p3_vs_k4})
 
     # -- phase 4: the main path, Predictor on the card --------------------------
     g_base = np.load(os.path.join(GOLD, "golden_baseline.npz"))
@@ -1718,7 +1736,7 @@ def main(argv=None) -> int:
     # the bound is the sum of the layers' own, named by the larger share
     by_ops = sum(r["bound"][0] for r in layer_rows if r["bound"][1] == "operations")
     kernels.append({
-        "name": "conv_layer", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_ecgcnn.cu",
+        "name": "conv_layer", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_wgmma.cu",
         "replaces": "tools/probe_layer_perf.py:52",
         "launches": layer_launches, "launches_by_path": {"probe_layer_perf": layer_launches},
         "max_abs_err": max(list(p3_err.values()) + list(p3_probe_err.values())),
@@ -1731,6 +1749,7 @@ def main(argv=None) -> int:
         "direct_ms": sum(r["direct_ms"] for r in layer_rows),
         "per_layer": [{"layer": r["layer"], "ms": r["im2col_ms"], "direct_ms": r["direct_ms"],
                        "plain_ms": p, "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                       "share_of_bound": r["bound"][0] / r["im2col_ms"],
                        "library_ms": r["cudnn_ms"]} for r, p in zip(layer_rows, p3_plain_ms)],
     })
     # P1 and P2: the two probe tables (every probe's kernel time, plain version,
@@ -1762,7 +1781,7 @@ def main(argv=None) -> int:
     by_ops = sum(r["bound"][0] for r in prows if r["bound"][1] == "operations")
     p4_bound = sum(r["bound"][0] for r in prows)
     kernels.append({
-        "name": "sublane_conv", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_ecgcnn.cu",
+        "name": "sublane_conv", "route": "cuda", "source": "ptbxl_torch/csrc/hybrid_wgmma.cu",
         "replaces": "tools/probe_sublane_conv.py:51",
         "launches": p4_info["launches"]["conv_layer_cf"],
         "launches_by_path": {"probe_sublane_conv": p4_info["launches"]["conv_layer_cf"]},
@@ -1776,6 +1795,7 @@ def main(argv=None) -> int:
         "p3_direct_ms": sum(r["p3_direct_ms"] for r in prows),
         "per_layer": [{"layer": r["layer"], "ms": r["p4_ms"], "plain_ms": p,
                        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                       "share_of_bound": r["bound"][0] / r["p4_ms"],
                        "library_ms": r["cudnn_ms"], "p3_im2col_ms": r["p3_im2col_ms"],
                        "p3_direct_ms": r["p3_direct_ms"]}
                       for r, p in zip(prows, p4_info["plain_ms"])],

@@ -25,7 +25,7 @@
 // So the forward is a short sequence of launches on the caller's stream, with
 // intermediates in device memory:
 //   ptbxl_conv_block_tf32x3 (once per block): an implicit GEMM in the
-//     shape of K4's (hybrid_ecgcnn.cu).  A block owns BM conv rows x BN
+//     shape of K4's (hybrid_wgmma.cu).  A block owns BM conv rows x BN
 //     output channels of one record.  It stages its f32 input rows with
 //     their 14-row halo once in shared memory, zero outside [0, T) and
 //     for padded channels, so SAME padding pads the *normalized* signal;

@@ -53,6 +53,31 @@
 // ptbxl_torch/tools/tune_wgmma.py times on the H100 at B=8192; each keeps
 // <= 128 accumulators a thread.
 //
+// P3 and P4, one conv layer of the probes, run on the same block.  They
+// replace tools/probe_layer_perf.py make_pallas_layer (:52; its "im2col"
+// mode: 15 shifted slices, one [t, 15*Cin] x [15*Cin, Cout] product) and
+// tools/probe_sublane_conv.py make_layer (:51; the same layer on a
+// channel-major input).  They compute K4's layer, conv k=15 with bf16
+// operands and f32 sums + bias, ReLU, floor pool, on the same tiles (the
+// table's row for their CinP -> Cout), and differ only at the edges, which
+// are compile-time policies of the kernel (InPolicy, OutPolicy): the input is
+// f32 and already padded in time (VALID: conv row t reads input rows t ..
+// t + 14, which hold data, not zeros; rows past the input are 0), and the
+// output is the f32 pooled rows.  P3's input is [B, T+14, Cin] (Cin % 4 ==
+// 0): its rows land by 16-byte cp.async as block 0's raw rows do and are
+// rounded to bf16 into the tile.  P4's is channel-major, [B, CinP, T+14]
+// with every channel holding data: a channel row of T+14 floats is 16-byte
+// aligned only when 4 | T+14, so its rows land by 4-byte cp.async, each
+// channel row of the tile contiguous (reads along time coalesce), and are
+// transposed into the tile 8 channels at a time (one 16-byte store a tile
+// row, conflict-free at the skewed row stride).  P4's default output is
+// [B, Cout, T/2]: the pooled tile is staged channel-major in the bf16 tile's
+// buffer, which is free once every consumer is past its products, in as
+// many channel parts as it takes to fit, and each part is written along
+// time.  The probes' b_tile (records a TPU grid step) has no counterpart.
+// Bound at B=2048: bytes for the first two layers, operations for the last
+// two (the probes' bound()).
+//
 // Fusion.  The JAX kernel keeps a record's blocks in VMEM; a CTA here cannot
 // hold a record, so a fused tile recomputes the first block's halo rows.
 // Blocks 0+1 and blocks 2+3 (block 3's sums) fused so
@@ -65,10 +90,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // The tile of each block the kernel takes, one row a line (hybrid_ecgcnn.py
 // reads the rows from this file: the weights' layout depends on BN, and the
 // plain version emulates BM = 128 * RM conv rows a tile; tools/tune_wgmma.py
-// builds copies with one row changed).  CinP 16 is block 0: f32 input.
+// builds copies with one row changed).  CinP 16 is block 0: f32 input.  P3's
+// and P4's layers take the same rows.
 //  X(CinP, Cout,  BN, RM, CTAs an SM, k16 steps a stage)
 #define PTBXL_WG_TILES(X) \
   X(16,     32,    32, 2,  2,          3)                  \
@@ -85,6 +113,23 @@ constexpr int kConsumers = 256;  // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 constexpr int kSkew = 8;         // bf16 of padding a staged row (ldmatrix bank spread)
 
+// Where a tile's input rows come from.  SAME: conv row t reads rows t - 7 ..
+// t + 7, zero outside [0, T).  VALID: the input is padded already, conv row t
+// reads rows t .. t + 14 of T + 14.
+enum InPolicy : int {
+  kInBf16 = 0,   // bf16 [B, T, CinP], SAME (K4's blocks 1-3)
+  kInRaw = 1,    // f32 [B, T, Cin], SAME, z-scored from stats or none (K4's block 0)
+  kInF32 = 2,    // f32 [B, T+14, Cin], VALID, Cin % 4 == 0 (P3)
+  kInF32CM = 3,  // f32 [B, CinP, T+14] channel-major, VALID (P4)
+};
+// What a tile writes: pool(relu(conv + bias)) of its rows.
+enum OutPolicy : int {
+  kOutBf16 = 0,   // bf16 [B, T/2, Cout] (K4)
+  kOutSums = 1,   // f32 sums over each tile's pooled rows, [B, row_tiles, Cout] (K4's block 3)
+  kOutF32 = 2,    // f32 [B, T/2, Cout] (P3; P4 without transpose_out)
+  kOutF32CM = 3,  // f32 [B, Cout, T/2] (P4)
+};
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -100,11 +145,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// pool(relu(acc + b)) of the two conv rows of a window (a and p), two channels
+// pool(relu(acc + b)) of the two conv rows of a window (a and p), one channel
+__device__ __forceinline__ float pool1(float a, float p, float b) {
+  return fmaxf(fmaxf(a + b, 0.f), fmaxf(p + b, 0.f));
+}
+// the same for two channels, packed in bf16
 __device__ __forceinline__ uint32_t pool_pair(float a0, float a1, float p0, float p1, float b0,
                                               float b1) {
-  return pack_bf16(fmaxf(fmaxf(a0 + b0, 0.f), fmaxf(p0 + b0, 0.f)),
-                   fmaxf(fmaxf(a1 + b1, 0.f), fmaxf(p1 + b1, 0.f)));
+  return pack_bf16(pool1(a0, p0, b0), pool1(a1, p1, b1));
 }
 
 // -- mbarriers and the bulk copy ---------------------------------------------
@@ -143,6 +191,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared, or zeros when !valid
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void consumer_sync() {
@@ -258,8 +312,14 @@ __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint6
 }
 
 // -- the conv block ---------------------------------------------------------------
-template <int CINP, int BN, int RM, int MINB, int STEPS_, bool IN_F32>
+template <int CINP_, int BN, int RM, int MINB, int STEPS_, int IN_, int OUT_ = kOutBf16>
 struct Tile {
+  static constexpr int CINP = CINP_;
+  static constexpr int IN = IN_;                          // InPolicy
+  static constexpr int OUT = OUT_;                        // OutPolicy
+  static constexpr bool F32_IN = IN != kInBf16;           // f32 rows land raw, then go to bf16
+  static constexpr bool LAYER = IN == kInF32 || IN == kInF32CM;  // P3's and P4's VALID input
+  static constexpr int OFF = LAYER ? 0 : kPad;            // input rows before conv row 0
   static constexpr int BM = 2 * 64 * RM;                  // conv rows a tile
   static constexpr int ROWS = BM + kK - 1;                // staged input rows
   static constexpr int XS = CINP + kSkew;                 // staged row stride (bf16)
@@ -269,25 +329,36 @@ struct Tile {
   static constexpr int STEP_BYTES = 16 * BN * 2;          // one k16 step of B
   static constexpr int STAGE_BYTES = STEPS * STEP_BYTES;
   static constexpr int NACC = BN / 2;                     // accumulators a thread, per m64
-  static constexpr int NXS = IN_F32 ? 1 : 2;              // input tiles (bf16: double-buffered)
+  static constexpr int NXS = F32_IN ? 1 : 2;              // input tiles (bf16: double-buffered)
   static constexpr size_t XS_BYTES = (size_t)ROWS * XS * 2;
-  static constexpr size_t RAW_BYTES = IN_F32 ? (size_t)ROWS * CINP * 4 : 0;  // f32 landing rows
+  static constexpr size_t RAW_BYTES = F32_IN ? (size_t)ROWS * CINP * 4 : 0;  // f32 landing rows
   static constexpr size_t REST = NXS * XS_BYTES + RAW_BYTES + (size_t)8 * BN * 4 + 2 * 64 * 8;
   // shared memory a CTA may take with MINB CTAs an SM (228 KB an SM, 1 KB of
   // it reserved a CTA, 227 KB at most a CTA)
   static constexpr size_t BUDGET = MINB == 1 ? 232448 : 233472 / MINB - 1024;
+  static constexpr size_t AVAIL = BUDGET > REST ? BUDGET - REST : 0;
   // the whole slice's weights stay in shared memory when they fit (loaded once
   // a CTA); else a ring of up to kMaxStages stages streams them for every tile
-  static constexpr bool RESIDENT = (size_t)NSTAGE * STAGE_BYTES <= BUDGET - REST;
+  static constexpr bool RESIDENT = (size_t)NSTAGE * STAGE_BYTES <= AVAIL;
   static constexpr int STAGES = RESIDENT ? NSTAGE
-                                : (BUDGET - REST) / STAGE_BYTES < kMaxStages
-                                    ? (int)((BUDGET - REST) / STAGE_BYTES) : kMaxStages;
+                                : AVAIL / STAGE_BYTES < kMaxStages
+                                    ? (int)(AVAIL / STAGE_BYTES) : kMaxStages;
   static constexpr size_t RING = (size_t)STAGES * STAGE_BYTES;
   static constexpr size_t SMEM = RING + REST;
-  static_assert(RESIDENT || STAGES >= 2, "a ring of two stages at least");
+  // kOutF32CM: the pooled tile [BN][BM/2] f32 is staged in the bf16 tile's
+  // buffer, OUT_PARTS channel parts one after another; a channel row is OS
+  // floats (16-byte rows, 4 banks apart: the fragments' stores spread)
+  static constexpr int OS = BM / 2 + 4;
+  static constexpr int OUT_PARTS = (size_t)BN * OS * 4 <= XS_BYTES       ? 1
+                                   : (size_t)BN / 2 * OS * 4 <= XS_BYTES ? 2
+                                                                         : 4;
+  static constexpr bool FITS = REST <= BUDGET && (RESIDENT || STAGES >= 2) && SMEM <= 232448 &&
+                               (OUT != kOutF32CM || (size_t)BN / OUT_PARTS * OS * 4 <= XS_BYTES);
   static_assert(STAGES <= 64, "barriers");
   static_assert(KSTEPS % STEPS == 0, "stages must tile the reduction");
-  static_assert(SMEM <= 232448, "shared memory");
+  // K4's blocks must fit; a layer's f32 tile that does not (a row of
+  // tools/tune_wgmma.py's variants) is refused at launch
+  static_assert(FITS || LAYER, "shared memory: a ring of two stages at least");
 };
 
 // Raw f32 rows u0 + r (r < rows) of one record into `raw` (row stride CINP,
@@ -339,16 +410,49 @@ __device__ __forceinline__ void zscore_rows(const float* raw, __nv_bfloat16* xs,
   }
 }
 
-// Copy tile `tile`'s input rows t0 - 7 + r (r < ROWS) into shared memory by
+// Channel-major f32 rows u0 + r (r < ROWS) of one record's CINP channel rows,
+// each Tx floats long, into `raw` as [CINP][ROWS] by 4-byte cp.async (a
+// channel row starts 16-byte aligned only when 4 | Tx); zeros from Tx on.
+template <int CINP, int ROWS>
+__device__ __forceinline__ void issue_cm_rows(const float* x_rec, float* raw, int u0, int Tx,
+                                              int tid) {
+  for (int i = tid; i < CINP * ROWS; i += kConsumers) {
+    const int c = i / ROWS, t = u0 + i % ROWS;
+    const bool in = t < Tx;
+    cp_async4_zfill(raw + i, x_rec + (size_t)c * Tx + (in ? t : 0), in);
+  }
+}
+
+// The landed channel-major rows [CINP][ROWS] into the bf16 tile (row stride
+// XS), transposed 8 channels at a time: one 16-byte store a tile row.
+template <int CINP, int ROWS, int XS>
+__device__ __forceinline__ void cm_rows_to_tile(const float* raw, __nv_bfloat16* xs, int tid) {
+  for (int i = tid; i < CINP / 8 * ROWS; i += kConsumers) {
+    const int c = i / ROWS * 8, r = i % ROWS;
+    const float* v = raw + c * ROWS + r;
+    uint4 pk;
+    pk.x = pack_bf16(v[0], v[ROWS]);
+    pk.y = pack_bf16(v[2 * ROWS], v[3 * ROWS]);
+    pk.z = pack_bf16(v[4 * ROWS], v[5 * ROWS]);
+    pk.w = pack_bf16(v[6 * ROWS], v[7 * ROWS]);
+    *reinterpret_cast<uint4*>(xs + r * XS + c) = pk;
+  }
+}
+
+// Copy tile `tile`'s input rows t0 - OFF + r (r < ROWS) into shared memory by
 // cp.async, zeros outside [0, T): bf16 rows into the staged tile `xs` (row
-// stride XS), or raw f32 rows into `raw` (row stride CINP, channels < Cin).
-template <int CINP, int BN, int RM, int MINB, int STEPS, bool IN_F32>
+// stride XS), or f32 rows into `raw` (channels-last: row stride CINP,
+// channels < Cin; channel-major: [CINP][ROWS]).  T is the input's rows.
+template <class S>
 __device__ __forceinline__ void issue_input(const void* xin, int rec, int t0, int T, int Cin,
                                             __nv_bfloat16* xs, float* raw, int tid) {
-  using S = Tile<CINP, BN, RM, MINB, STEPS, IN_F32>;
-  if constexpr (IN_F32) {
+  constexpr int CINP = S::CINP;
+  if constexpr (S::IN == kInF32CM) {
+    issue_cm_rows<CINP, S::ROWS>(static_cast<const float*>(xin) + (size_t)rec * CINP * T, raw,
+                                 t0, T, tid);
+  } else if constexpr (S::F32_IN) {
     issue_raw_rows<CINP>(static_cast<const float*>(xin) + (size_t)rec * T * Cin, raw, S::ROWS,
-                         t0 - kPad, T, Cin, tid);
+                         t0 - S::OFF, T, Cin, tid);
   } else {
     const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(xin) + (size_t)rec * T * CINP;
     constexpr int C8 = CINP / 8;
@@ -408,21 +512,22 @@ __device__ __forceinline__ void mma_stage(float (&acc)[RM][S::NACC], const __nv_
   if (!S::RESIDENT && (threadIdx.x & 127) == 0) mbar_arrive(&empty[slot]);
 }
 
-// x: [B, T, Cin] f32 (IN_F32: block 0's raw record, Cin % 4 == 0, stats
-// [B, Cin, 2] = (mean, std+eps) or null) or bf16 (Cin == CINP); w:
-// [Cout/BN, KSTEPS, 16 x BN] bf16 in core order; bias [Cout] f32.  Output:
-// [B, T/2, Cout] bf16, or with SUMS the f32 sums over each tile's pooled
-// rows, [B, row_tiles, Cout].  Persistent: CTA c takes tiles c, c + grid, ...
-// (tile = (record, row tile, channel slice)); the producer streams each
-// tile's weights through the ring without a break, and the consumers fetch
-// the next tile's input while they multiply this one's.
-template <int CINP, int BN, int RM, int MINB, int STEPS, bool IN_F32, bool SUMS>
+// x (InPolicy IN): [B, T, Cin] f32, block 0's raw record (Cin % 4 == 0, stats
+// [B, Cin, 2] = (mean, std+eps) or null), or bf16 (Cin == CINP); P3's f32
+// [B, T, Cin] or P4's f32 [B, CINP, T], padded in time (T = conv rows + 14).
+// w: [Cout/BN, KSTEPS, 16 x BN] bf16 in core order; bias [Cout] f32.  Output
+// (OutPolicy OUT): [B, T/2, Cout] bf16 or f32, [B, Cout, T/2] f32, or the f32
+// sums over each tile's pooled rows, [B, row_tiles, Cout].  Persistent: CTA c
+// takes tiles c, c + grid, ... (tile = (record, row tile, channel slice)); the
+// producer streams each tile's weights through the ring without a break, and
+// the consumers fetch the next tile's input while they multiply this one's.
+template <int CINP, int BN, int RM, int MINB, int STEPS, int IN, int OUT>
 __global__ void __launch_bounds__(kThreads, MINB)
 wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ stats,
                         const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
                         void* __restrict__ yout, int T, int Cin, int Cout, int row_tiles,
                         int n_tiles) {
-  using S = Tile<CINP, BN, RM, MINB, STEPS, IN_F32>;
+  using S = Tile<CINP, BN, RM, MINB, STEPS, IN, OUT>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;                                                // S::STAGES slots
   __nv_bfloat16* xs0 = reinterpret_cast<__nv_bfloat16*>(smem + S::RING);   // NXS tiles
@@ -467,14 +572,13 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
   const int lrow = lane & 15, lcol = (lane >> 4) * 8;
   const int mrow0 = wg * 64 * RM + warp * 16;  // this warp's first row of m64 tile 0
   const int g8 = lane >> 2, q = lane & 3;
-  const int half = T / 2;  // MaxPool(2) floors odd lengths
+  const int half = (T - 2 * (kPad - S::OFF)) / 2;  // conv rows / 2: MaxPool(2) floors odd lengths
   int g = 0;               // stages consumed so far
   int buf = 0;
 
   if (blockIdx.x < n_tiles) {
     const int tile = blockIdx.x, rec = tile / (nsl * row_tiles);
-    issue_input<CINP, BN, RM, MINB, STEPS, IN_F32>(xin, rec, ((tile / nsl) % row_tiles) * S::BM, T, Cin, xs0,
-                                      raw, tid);
+    issue_input<S>(xin, rec, ((tile / nsl) % row_tiles) * S::BM, T, Cin, xs0, raw, tid);
   }
 #pragma unroll 1
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -483,16 +587,18 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
     __nv_bfloat16* xs = xs0 + buf * (S::ROWS * S::XS);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     consumer_sync();  // this tile's input has landed; every consumer is done with the last tile
-    if constexpr (IN_F32) {
-      zscore_rows<CINP, S::XS>(raw, xs, S::ROWS, t0 - kPad, T, Cin,
+    if constexpr (IN == kInF32CM) {
+      cm_rows_to_tile<CINP, S::ROWS, S::XS>(raw, xs, tid);
+      consumer_sync();  // the raw rows are free for the next tile
+    } else if constexpr (S::F32_IN) {
+      zscore_rows<CINP, S::XS>(raw, xs, S::ROWS, t0 - S::OFF, T, Cin,
                                stats ? stats + (size_t)rec * Cin * 2 : nullptr, tid);
       consumer_sync();  // the raw rows are free for the next tile
     }
     const int next = tile + gridDim.x;
     if (next < n_tiles) {
-      issue_input<CINP, BN, RM, MINB, STEPS, IN_F32>(xin, next / (nsl * row_tiles),
-                                        ((next / nsl) % row_tiles) * S::BM, T, Cin,
-                                        xs0 + (buf ^ 1) * (S::ROWS * S::XS), raw, tid);
+      issue_input<S>(xin, next / (nsl * row_tiles), ((next / nsl) % row_tiles) * S::BM, T, Cin,
+                     xs0 + (buf ^ 1) * (S::ROWS * S::XS), raw, tid);
     }
 
     float acc[RM][S::NACC];
@@ -509,8 +615,9 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
     // epilogue: accumulator i of n8 chunk c is row g8 (i < 2) or g8 + 8,
     // column 8c + 2q + (i & 1); rows g8 and g8 + 1 of a window are lanes 4 apart
     const int n0 = ns * BN;
-    if constexpr (!SUMS) {
-      __nv_bfloat16* y = static_cast<__nv_bfloat16*>(yout) + (size_t)rec * half * Cout;
+    if constexpr (OUT == kOutBf16 || OUT == kOutF32) {
+      using YT = std::conditional_t<OUT == kOutBf16, __nv_bfloat16, float>;
+      YT* y = static_cast<YT*>(yout) + (size_t)rec * half * Cout;
 #pragma unroll
       for (int rm = 0; rm < RM; ++rm) {
         const int row = t0 + mrow0 + rm * 64 + g8;  // even g8: a pool window starts here
@@ -525,12 +632,57 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int prow = (row + 8 * h) / 2;
-              if (prow < half)
-                *reinterpret_cast<uint32_t*>(y + (size_t)prow * Cout + col) =
-                    pool_pair(acc[rm][4 * c + 2 * h], acc[rm][4 * c + 2 * h + 1], p[2 * h],
-                              p[2 * h + 1], b0, b1);
+              if (prow < half) {
+                if constexpr (OUT == kOutBf16)
+                  *reinterpret_cast<uint32_t*>(y + (size_t)prow * Cout + col) =
+                      pool_pair(acc[rm][4 * c + 2 * h], acc[rm][4 * c + 2 * h + 1], p[2 * h],
+                                p[2 * h + 1], b0, b1);
+                else
+                  *reinterpret_cast<float2*>(y + (size_t)prow * Cout + col) =
+                      make_float2(pool1(acc[rm][4 * c + 2 * h], p[2 * h], b0),
+                                  pool1(acc[rm][4 * c + 2 * h + 1], p[2 * h + 1], b1));
+              }
             }
           }
+        }
+      }
+    } else if constexpr (OUT == kOutF32CM) {
+      // the pooled tile, channel-major in the bf16 tile's buffer (its last
+      // reader was this tile's ldmatrix), one channel part at a time, then
+      // written along time
+      constexpr int PB = BN / S::OUT_PARTS;  // channels a part
+      constexpr int PR = S::BM / 2;          // pooled rows a tile
+      float* stage = reinterpret_cast<float*>(xs);
+      float* y = static_cast<float*>(yout) + ((size_t)rec * Cout + n0) * half;
+#pragma unroll
+      for (int part = 0; part < S::OUT_PARTS; ++part) {
+        consumer_sync();  // every consumer is past its products, or done with the last part
+#pragma unroll
+        for (int rm = 0; rm < RM; ++rm) {
+          const int lr = mrow0 + rm * 64 + g8;  // the tile's conv row; even g8: a window
+#pragma unroll
+          for (int cc = 0; cc < PB / 8; ++cc) {
+            const int c = part * (PB / 8) + cc;
+            float p[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[e] = __shfl_xor_sync(0xffffffffu, acc[rm][4 * c + e], 4);
+            if ((g8 & 1) == 0) {
+              const int col = 8 * cc + 2 * q;  // within the part
+              const float b0 = bias[n0 + 8 * c + 2 * q], b1 = bias[n0 + 8 * c + 2 * q + 1];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int pl = (lr + 8 * h) / 2;
+                stage[col * S::OS + pl] = pool1(acc[rm][4 * c + 2 * h], p[2 * h], b0);
+                stage[(col + 1) * S::OS + pl] = pool1(acc[rm][4 * c + 2 * h + 1], p[2 * h + 1], b1);
+              }
+            }
+          }
+        }
+        consumer_sync();
+        for (int i = tid; i < PB * PR; i += kConsumers) {
+          const int n = i / PR, prow = t0 / 2 + i % PR;
+          if (prow < half) y[(size_t)(part * PB + n) * half + prow] = stage[n * S::OS + i % PR];
         }
       }
     } else {
@@ -577,40 +729,46 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
         y[n] = sum;
       }
     }
-    if constexpr (!IN_F32) buf ^= 1;
+    if constexpr (!S::F32_IN) buf ^= 1;
   }
 }
 
-template <int CINP, int BN, int RM, int MINB, int STEPS, bool IN_F32, bool SUMS>
+// One launch of the block; T is the input's rows (conv rows + 14 for a layer).
+template <int CINP, int BN, int RM, int MINB, int STEPS, int IN, int OUT>
 cudaError_t launch_block(const void* x, const float* stats, const void* w, const float* b, void* y,
                          int B, int T, int Cin, int Cout, cudaStream_t st) {
-  using S = Tile<CINP, BN, RM, MINB, STEPS, IN_F32>;
-  if (Cout % BN || (S::RESIDENT && Cout != BN)) return cudaErrorInvalidValue;  // one resident slice
-  auto kernel = wgmma_conv_block_kernel<CINP, BN, RM, MINB, STEPS, IN_F32, SUMS>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  const int row_tiles = (2 * (T / 2) + S::BM - 1) / S::BM;
-  const long n_tiles = (long)B * row_tiles * (Cout / BN);
-  if (n_tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  const int grid = (int)(n_tiles < (long)sms * MINB ? n_tiles : (long)sms * MINB);
-  kernel<<<grid, kThreads, S::SMEM, st>>>(x, stats, static_cast<const __nv_bfloat16*>(w), b, y, T,
-                                          Cin, Cout, row_tiles, (int)n_tiles);
-  return cudaGetLastError();
+  using S = Tile<CINP, BN, RM, MINB, STEPS, IN, OUT>;
+  if constexpr (!S::FITS) {
+    return cudaErrorInvalidValue;  // a layer's f32 tile too large for shared memory
+  } else {
+    if (Cout % BN || (S::RESIDENT && Cout != BN)) return cudaErrorInvalidValue;  // one resident slice
+    auto kernel = wgmma_conv_block_kernel<CINP, BN, RM, MINB, STEPS, IN, OUT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+    if (err != cudaSuccess) return err;
+    int device = 0, sms = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+      return err;
+    const int conv = T - 2 * (kPad - S::OFF);
+    const int row_tiles = (2 * (conv / 2) + S::BM - 1) / S::BM;
+    const long n_tiles = (long)B * row_tiles * (Cout / BN);
+    if (n_tiles > 0x7fffffff) return cudaErrorInvalidValue;
+    const int grid = (int)(n_tiles < (long)sms * MINB ? n_tiles : (long)sms * MINB);
+    kernel<<<grid, kThreads, S::SMEM, st>>>(x, stats, static_cast<const __nv_bfloat16*>(w), b, y,
+                                            T, Cin, Cout, row_tiles, (int)n_tiles);
+    return cudaGetLastError();
+  }
 }
 
-template <int CINP, int BN, int RM, int MINB, int STEPS, bool IN_F32>
+template <int CINP, int BN, int RM, int MINB, int STEPS, int IN>
 cudaError_t launch_mode(int sums, const void* x, const float* stats, const void* w, const float* b,
                         void* y, int B, int T, int Cin, int Cout, cudaStream_t st) {
   if (sums)
-    return launch_block<CINP, BN, RM, MINB, STEPS, IN_F32, true>(x, stats, w, b, y, B, T, Cin,
+    return launch_block<CINP, BN, RM, MINB, STEPS, IN, kOutSums>(x, stats, w, b, y, B, T, Cin,
                                                                   Cout, st);
-  return launch_block<CINP, BN, RM, MINB, STEPS, IN_F32, false>(x, stats, w, b, y, B, T, Cin,
-                                                                 Cout, st);
+  return launch_block<CINP, BN, RM, MINB, STEPS, IN, kOutBf16>(x, stats, w, b, y, B, T, Cin,
+                                                                Cout, st);
 }
 
 // -- the tail: channel sums -> mean -> proj -> head --------------------------------
@@ -679,8 +837,42 @@ int ptbxl_wgmma_conv_block(int device, const void* x, const void* stats, const v
   const float* ss = static_cast<const float*>(stats);
 #define PTBXL_WG_DISPATCH(CINP, COUT, BN, RM, MINB, STEPS)                                 \
   if (CinP == CINP && Cout == COUT)                                                        \
-    return (int)launch_mode<CINP, BN, RM, MINB, STEPS, CINP == 16>(sums, x, ss, w, bs, y, B, T, \
-                                                                   Cin, Cout, st);
+    return (int)launch_mode<CINP, BN, RM, MINB, STEPS, CINP == 16 ? kInRaw : kInBf16>(     \
+        sums, x, ss, w, bs, y, B, T, Cin, Cout, st);
+  PTBXL_WG_TILES(PTBXL_WG_DISPATCH)
+#undef PTBXL_WG_DISPATCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// One conv layer on wgmma (P3, P4): the input padded in time, Tx = T + 14
+// rows, conv row t reading rows t .. t + 14 (VALID).  x f32: [B, Tx, Cin]
+// with Cin % 4 == 0 and 16-byte aligned (channel_major 0; P3), or [B, CinP,
+// Tx] with Cin == CinP (channel_major 1; P4).  w from wg_weight ([Cout/BN,
+// 15*CinP/16, 16*BN] bf16); b [Cout] f32; y f32 [B, T/2, Cout], or with
+// transpose_out (channel-major input only) [B, Cout, T/2].  (CinP, Cout)
+// takes its row of PTBXL_WG_TILES; any other shape is refused.
+int ptbxl_wgmma_conv_layer(int device, const void* x, const void* w, const void* b, void* y, int B,
+                           int Tx, int Cin, int CinP, int Cout, int channel_major,
+                           int transpose_out, void* stream) {
+  cudaError_t err = ensure_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || Tx < kK + 1 || Cin <= 0 || Cin > CinP) return (int)cudaErrorInvalidValue;
+  if (channel_major ? Cin != CinP
+                    : Cin % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 || transpose_out)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* bs = static_cast<const float*>(b);
+#define PTBXL_WG_DISPATCH(CINP, COUT, BN, RM, MINB, STEPS)                                   \
+  if (CinP == CINP && Cout == COUT) {                                                        \
+    if (!channel_major)                                                                      \
+      return (int)launch_block<CINP, BN, RM, MINB, STEPS, kInF32, kOutF32>(                  \
+          x, nullptr, w, bs, y, B, Tx, Cin, Cout, st);                                       \
+    if (!transpose_out)                                                                      \
+      return (int)launch_block<CINP, BN, RM, MINB, STEPS, kInF32CM, kOutF32>(                \
+          x, nullptr, w, bs, y, B, Tx, Cin, Cout, st);                                       \
+    return (int)launch_block<CINP, BN, RM, MINB, STEPS, kInF32CM, kOutF32CM>(                \
+        x, nullptr, w, bs, y, B, Tx, Cin, Cout, st);                                         \
+  }
   PTBXL_WG_TILES(PTBXL_WG_DISPATCH)
 #undef PTBXL_WG_DISPATCH
   return (int)cudaErrorInvalidValue;

@@ -6,9 +6,9 @@ K4 replaces ``ptbxl_tpu/ops/pallas/hybrid_ecgcnn.py``: ``_make_tail_kernel``
 ``hybrid_ecgcnn_probs`` (:230).  P3's layer replaces
 ``tools/probe_layer_perf.py::make_pallas_layer`` (:52).  Kernels:
 ``ptbxl_torch/csrc/hybrid_wgmma.cu`` (K4's bf16 conv block on ``wgmma`` and
-its tail), K2's 3xTF32 conv block and tail (``csrc/fused_ecgcnn.cu``, K4 in
-f32), K1's ``zscore_stats``, and ``csrc/hybrid_ecgcnn.cu`` (P3's and P4's
-``mma.sync`` conv blocks).
+its tail; the same block runs P3's and P4's layers), K2's 3xTF32 conv block
+and tail (``csrc/fused_ecgcnn.cu``, K4 in f32; K2's bf16 FMA block for P3's
+``direct`` mode) and K1's ``zscore_stats``.
 
 What K4 computes (``hybrid_ecgcnn_logits``): the two-pass z-score when
 ``normalize``; every conv block, conv k=15 with ``compute_dtype`` operands
@@ -41,27 +41,35 @@ split weights in f32) are built once by ``prepare_weights`` and passed as
 ``weights``; without them a call builds its own.
 
 ``conv_layer`` (P3) is one layer on a pre-padded input ``[B, T+14, Cin]`` f32
-with weights ``[15*Cin, Cout]``: ``mode="im2col"`` launches the tensor-core
-conv block of ``csrc/hybrid_ecgcnn.cu``, ``mode="direct"`` K2's bf16 FMA
-conv block (15 shifted products); both compute conv k=15 with bf16 operands
-and f32 sums, + bias, ReLU and the floor pool, ``[B, T//2, Cout]`` f32.
+with weights ``[15*Cin, Cout]``: ``mode="im2col"`` launches the ``wgmma``
+conv block, ``mode="direct"`` K2's bf16 FMA conv block (15 shifted
+products); both compute conv k=15 with bf16 operands and f32 sums, + bias,
+ReLU and the floor pool, ``[B, T//2, Cout]`` f32.
 
 ``conv_layer_cf`` (P4) replaces ``tools/probe_sublane_conv.py::make_layer``
 (:51): the same layer on a channel-major input ``[B, Cpad, T+14]`` f32 with
 weights ``[15*Cpad, Cout]`` (row ``k*Cpad + c``), contracting over all
 ``Cpad`` channels (the probe's padded channels hold data too), and an output
-``[B, Cout, T//2]`` (``transpose_out``) or ``[B, T//2, Cout]``.  Its kernel
-(``ptbxl_conv_layer_cf``) runs P3's tap loop on a tile staged transposed.
-The probe's ``b_tile`` (records per TPU grid step) has no counterpart and is
-not taken.
+``[B, Cout, T//2]`` (``transpose_out``) or ``[B, T//2, Cout]``.
+
+P3's ``im2col`` mode and P4 are K4's block with other edges
+(``ptbxl_wgmma_conv_layer``): the input is f32 and padded in time already
+(VALID: conv row t reads input rows t .. t+14, which hold data), P4's
+channel-major rows are transposed into the tile as they are staged, and the
+output is the f32 pooled rows, P4's written channel-major from a staged
+tile.  They take the tile table's row for their CinP -> Cout (the ECGCNN's
+four) and raise ``ValueError`` for any other, as ``wg_tile`` does.  Each
+call builds its weights' core order (``wg_weight``).  The TPU kernels' record
+tile (``b_tile``) has no counterpart.
 
 A CPU tensor takes the plain versions (``hybrid_ecgcnn_logits_plain``, the
 JAX function step by step; ``wgmma_conv_block_plain``, which emulates the
 kernel's tiling; ``sums_tail_plain``; ``conv_layer_plain``,
 ``conv_layer_cf_plain``); a CUDA tensor launches the kernels or raises.
 ``card_route_logits`` on CPU tensors runs the card's launch sequence with
-every launch's plain version.  ``launches`` counts K4 forwards on the card,
-``launches_layer`` P3 layers, ``launches_layer_cf`` P4 layers.
+every launch's plain version; ``wgmma_conv_block_plain(..., valid=True)``
+emulates P3's and P4's tiled route.  ``launches`` counts K4 forwards on the
+card, ``launches_layer`` P3 layers, ``launches_layer_cf`` P4 layers.
 """
 
 from __future__ import annotations
@@ -103,15 +111,11 @@ def read_wg_tiles(text: str) -> Dict[int, Tuple[int, ...]]:
 WG_TILES = read_wg_tiles(WG_SOURCE.read_text())
 
 _I, _P = _build.INT, _build.VOIDP
-_SIGNATURES = {
-    # device, x, w, b, y, B, Tx, T, off, Cin, CinP, Cout, stream
-    "ptbxl_tc_conv_block": [_I, _P, _P, _P, _P] + [_I] * 7 + [_P],
-    # device, x, w, b, y, B, Tx, CinP, Cout, transpose_out, stream
-    "ptbxl_conv_layer_cf": [_I, _P, _P, _P, _P] + [_I] * 5 + [_P],
-}
 _WG_SIGNATURES = {
     # device, x, stats, w, b, y, B, T, Cin, CinP, Cout, in_f32, sums, stream
     "ptbxl_wgmma_conv_block": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    # device, x, w, b, y, B, Tx, Cin, CinP, Cout, channel_major, transpose_out, stream
+    "ptbxl_wgmma_conv_layer": [_I] + [_P] * 4 + [_I] * 7 + [_P],
     # device, part, pw, pb, hw, hb, logits, B, n_tiles, T, C, F, L, stream
     "ptbxl_sums_tail": [_I] + [_P] * 6 + [_I] * 6 + [_P],
 }
@@ -189,16 +193,6 @@ def hybrid_ecgcnn_logits_plain(x: torch.Tensor, folded: Folded, split: int = 2,
         return _dot1(z, folded["head_w"], compute_dtype) + folded["head_b"]
 
 
-def tc_weight(w: torch.Tensor) -> torch.Tensor:
-    """[15, Cin, Cout] f32 -> [15, CinP, Cout] bf16, channels zero-padded to a
-    multiple of 16 (P3's im2col layer, ``ptbxl_tc_conv_block``)."""
-    k, cin, cout = w.shape
-    cin_p = -(-cin // 16) * 16
-    out = torch.zeros((k, cin_p, cout), dtype=torch.bfloat16, device=w.device)
-    out[:, :cin] = w
-    return out
-
-
 # -- K4: the wgmma conv block ------------------------------------------------------
 
 def wg_tile(cin_p: int, cout: int) -> Tuple[int, int]:
@@ -274,27 +268,71 @@ def _check_wg_block(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
     return cin_p, cout, bn, bm
 
 
-def wgmma_conv_block_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
-                           stats: Optional[torch.Tensor] = None,
-                           sums: bool = False) -> torch.Tensor:
-    """Plain version of ``wgmma_conv_block``, emulating the kernel's tiling.
+def _check_wg_layer(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
+                    channel_major: bool, transpose_out: bool) -> Tuple[int, int, int, int]:
+    """(CinP, Cout, BN, BM) of a layer on the ``wgmma`` block (P3, P4), or
+    ValueError for what the kernel does not take."""
+    cin_p, cout, bn, bm = _wg_geometry(wp)
+    if x.dim() != 3 or x.dtype != torch.float32:
+        raise ValueError(f"a layer's input is f32 [B, T+14, Cin] or [B, CinP, T+14], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    cin, tx = (x.shape[1], x.shape[2]) if channel_major else (x.shape[2], x.shape[1])
+    if tx < 2 * PAD + 2:
+        raise ValueError(f"a layer's input is padded in time: T+14 rows with T >= 2, got {tx}")
+    if channel_major and cin != cin_p:
+        raise ValueError(f"a channel-major input holds all CinP ({cin_p}) channels, got {cin}")
+    if not channel_major:
+        if cin % 4 or -(-cin // 16) * 16 != cin_p:
+            raise ValueError(f"a channels-last input takes Cin % 4 == 0 padded to CinP "
+                             f"({cin_p}), got Cin={cin}")
+        if transpose_out:
+            raise ValueError("transpose_out takes a channel-major input")
+        if x.data_ptr() % 16:
+            raise ValueError("a channels-last input must start 16-byte aligned (its rows land "
+                             "by 16-byte cp.async)")
+    if tuple(b.shape) != (cout,) or b.dtype != torch.float32:
+        raise ValueError(f"b must be f32 [{cout}], got {b.dtype} {tuple(b.shape)}")
+    return cin_p, cout, bn, bm
 
-    Per record, tiles of BM conv rows: the tile's BM + 14 input rows with
-    their halo (zero outside [0, T); block 0 z-scored from ``stats`` first,
-    then rounded to bf16), the 15 * CinP/16 k16 steps added in the kernel's
-    order with the weights read back from ``wp``, + bias, ReLU, the floor
-    pool; bf16 out, or with ``sums`` each tile's f32 sums over its pooled rows.
+
+def wgmma_conv_block_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
+                           stats: Optional[torch.Tensor] = None, sums: bool = False,
+                           valid: bool = False, channel_major: bool = False,
+                           transpose_out: bool = False) -> torch.Tensor:
+    """Plain version of ``wgmma_conv_block`` and of P3's and P4's layers on
+    the same block, emulating the kernel's tiling.
+
+    Per record, tiles of BM conv rows: the tile's BM + 14 input rows (zero
+    outside the input; block 0 z-scored from ``stats`` first, then rounded to
+    bf16), the 15 * CinP/16 k16 steps added in the kernel's order with the
+    weights read back from ``wp``, + bias, ReLU, the floor pool; bf16 out,
+    or with ``sums`` each tile's f32 sums over its pooled rows.  SAME: conv
+    row t reads rows t-7 .. t+7 of ``[B, T, Cin]``.  ``valid`` (P3, P4): x
+    f32 padded in time, ``[B, T+14, Cin]`` or with ``channel_major`` ``[B,
+    CinP, T+14]``, conv row t reading rows t .. t+14; f32 out ``[B, T//2,
+    Cout]``, or with ``transpose_out`` ``[B, Cout, T//2]``.
     """
-    cin_p, cout, _, bm = _check_wg_block(x, wp, b, stats)
-    bsz, t, cin = x.shape
+    if valid:
+        if stats is not None or sums:
+            raise ValueError("a layer takes no stats and writes no sums")
+        cin_p, cout, _, bm = _check_wg_layer(x, wp, b, channel_major, transpose_out)
+        h = x.transpose(1, 2) if channel_major else x
+        t, off = h.shape[1] - 2 * PAD, 0
+    else:
+        if channel_major or transpose_out:
+            raise ValueError("channel_major and transpose_out are a layer's (valid=True)")
+        cin_p, cout, _, bm = _check_wg_block(x, wp, b, stats)
+        h = x
+        if stats is not None:
+            h = (h - stats[:, None, :, 0]) / stats[:, None, :, 1]
+        t, off = x.shape[1], PAD
+    bsz, _, cin = h.shape
     w = wg_weight_unpack(wp).float()
-    h = x.float()
-    if stats is not None:
-        h = (h - stats[:, None, :, 0]) / stats[:, None, :, 1]
     half = t // 2
     row_tiles = -(-2 * half // bm)
-    xp = h.new_zeros((bsz, row_tiles * bm + K - 1, cin_p))
-    xp[:, PAD:PAD + t, :cin] = h.to(torch.bfloat16).float()
+    xp = h.new_zeros((bsz, row_tiles * bm + K - 1, cin_p), dtype=torch.float32)
+    n = min(h.shape[1], xp.shape[1] - off)  # a layer's last input row may lie past every tile
+    xp[:, off:off + n, :cin] = h[:, :n].to(torch.bfloat16).float()
     outs = []
     with highest_precision():
         for tile in range(row_tiles):
@@ -308,7 +346,10 @@ def wgmma_conv_block_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
             outs.append(p.sum(1) if sums else p)
     if sums:
         return torch.stack(outs, 1)                      # [B, row_tiles, Cout] f32
-    return torch.cat(outs, 1).to(torch.bfloat16)         # [B, T//2, Cout]
+    y = torch.cat(outs, 1)                               # [B, T//2, Cout] f32
+    if valid:
+        return y.transpose(1, 2).contiguous() if transpose_out else y
+    return y.to(torch.bfloat16)
 
 
 def wgmma_conv_block(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
@@ -458,20 +499,24 @@ def hybrid_ecgcnn_probs(x: torch.Tensor, folded: Folded,
                                               weights))
 
 
-def _tc_conv(x: torch.Tensor, wt: torch.Tensor, b: torch.Tensor, t: int, off: int) -> torch.Tensor:
-    """One launch of P3's tensor-core conv block: x [B, Tx, Cin] f32, conv rows
-    t + k - off, wt [15, CinP, Cout] bf16 from ``tc_weight`` -> [B, t//2, Cout] f32."""
-    bsz, tx, cin = x.shape
-    cout = wt.shape[2]
-    if cin % 4 or cout % 32 or t < 2:
-        raise ValueError(f"tensor-core conv block needs Cin % 4 == 0, Cout % 32 == 0 and "
-                         f"T >= 2, got Cin={cin}, Cout={cout}, T={t}")
-    y = torch.empty((bsz, t // 2, cout), dtype=torch.float32, device=x.device)
-    lib = _build.load_library("hybrid_ecgcnn", _SIGNATURES)
-    err = lib.ptbxl_tc_conv_block(
-        x.get_device(), x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, tx, t,
-        off, cin, wt.shape[1], cout, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "tensor-core conv block launch")
+def _wgmma_layer(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor, channel_major: bool = False,
+                 transpose_out: bool = False) -> torch.Tensor:
+    """One launch of a layer on the ``wgmma`` block (``ptbxl_wgmma_conv_layer``):
+    contiguous CUDA tensors, x f32 padded in time ([B, T+14, Cin], or with
+    ``channel_major`` [B, CinP, T+14]), ``wp`` from ``wg_weight``, b [Cout] f32
+    -> f32 [B, T//2, Cout], or with ``transpose_out`` [B, Cout, T//2]."""
+    cin_p, cout, _, _ = _check_wg_layer(x, wp, b, channel_major, transpose_out)
+    bsz = x.shape[0]
+    cin, tx = (x.shape[1], x.shape[2]) if channel_major else (x.shape[2], x.shape[1])
+    half = (tx - 2 * PAD) // 2
+    shape = (bsz, cout, half) if transpose_out else (bsz, half, cout)
+    y = torch.empty(shape, dtype=torch.float32, device=x.device)
+    lib = _build.load_library("hybrid_wgmma", _WG_SIGNATURES)
+    err = lib.ptbxl_wgmma_conv_layer(
+        x.get_device(), x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, tx, cin,
+        cin_p, cout, int(channel_major), int(transpose_out),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "wgmma conv layer launch")
     return y
 
 
@@ -505,8 +550,9 @@ def conv_layer_plain(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
 
 def conv_layer(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
                mode: str = "im2col") -> torch.Tensor:
-    """P3's layer on the card (``mode`` im2col: the tensor-core conv block;
-    direct: K2's bf16 FMA conv block); see ``conv_layer_plain``."""
+    """P3's layer on the card (``mode`` im2col: the ``wgmma`` conv block, for
+    the tile table's CinP -> Cout; direct: K2's bf16 FMA conv block); see
+    ``conv_layer_plain``."""
     global launches_layer
     if x.device.type == "cpu":
         return conv_layer_plain(x, w2d, b, mode)
@@ -521,7 +567,7 @@ def conv_layer(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
     cout = w2d.shape[1]
     t = tx - 2 * PAD
     if mode == "im2col":
-        y = _tc_conv(x, tc_weight(w2d.view(K, cin, cout)), b, t, 0)
+        y = _wgmma_layer(x, wg_weight(w2d.view(K, cin, cout)), b)
     else:
         if cout % 32:
             raise ValueError(f"direct mode needs Cout % 32 == 0, got {cout}")
@@ -563,8 +609,8 @@ def conv_layer_cf_plain(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
 
 def conv_layer_cf(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
                   transpose_out: bool = True) -> torch.Tensor:
-    """P4's layer on the card (``ptbxl_conv_layer_cf``); see ``conv_layer_cf_plain``.
-    Needs Cpad % 16 == 0 and Cout % 32 == 0."""
+    """P4's layer on the card (the ``wgmma`` conv block on a channel-major
+    input, for the tile table's Cpad -> Cout); see ``conv_layer_cf_plain``."""
     global launches_layer_cf
     if x.device.type == "cpu":
         return conv_layer_cf_plain(x, w2d, b, transpose_out)
@@ -574,20 +620,7 @@ def conv_layer_cf(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
     for name, v in (("x", x), ("w", w2d), ("b", b)):
         if v.device != x.device or v.dtype != torch.float32:
             raise TypeError(f"{name} must be f32 on {x.device}, got {v.dtype} on {v.device}")
-    cout = w2d.shape[1]
-    if cpad % 16 or cout % 32:
-        raise ValueError(f"conv_layer_cf needs Cpad % 16 == 0 and Cout % 32 == 0, "
-                         f"got Cpad={cpad}, Cout={cout}")
-    x, b = x.contiguous(), b.contiguous()
-    bsz, _, tx = x.shape
-    half = (tx - 2 * PAD) // 2
-    shape = (bsz, cout, half) if transpose_out else (bsz, half, cout)
-    y = torch.empty(shape, dtype=torch.float32, device=x.device)
-    wt = w2d.reshape(K, cpad, cout).to(torch.bfloat16).contiguous()
-    lib = _build.load_library("hybrid_ecgcnn", _SIGNATURES)
-    err = lib.ptbxl_conv_layer_cf(
-        x.get_device(), x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, tx, cpad,
-        cout, int(transpose_out), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "channel-major conv layer launch")
+    wp = wg_weight(w2d.reshape(K, cpad, w2d.shape[1]))
+    y = _wgmma_layer(x.contiguous(), wp, b.contiguous(), True, transpose_out)
     launches_layer_cf += 1
     return y

@@ -7,8 +7,11 @@ of one ``hybrid_ecgcnn_logits`` call in bf16 at ``split=2`` on the baseline
 checkpoint with weights from ``prepare_weights`` (the bench's hybrid row
 without the sigmoid), the framework bf16 forward's ms (``bench.build_forward(
 "framework", "bf16")``, the library yardstick), and the device ms of every
-launch of one K4 call from ``torch.profiler`` (CUPTI), in order.  Uses only
-the port's public K4 API, so the same file times any commit of the port
+launch of one K4 call from ``torch.profiler`` (CUPTI), in order; and what
+``-Xptxas -v`` reported for each instantiation of the ``wgmma`` conv block
+in the build it ran (registers, spill bytes, static shared memory), keyed by
+its template arguments.  Uses only the port's public K4 API and its build
+directory, so the same file times any commit of the port
 (``PYTHONPATH=<checkout> python <this file>``), which is how a change and its
 parent are compared in one call.  Prints one JSON object; ``--out`` writes it
 to a file as well.
@@ -18,11 +21,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 
 import torch
 
 from ptbxl_torch import bench
+from ptbxl_torch.ops.kernels import _build
 from ptbxl_torch.models.params_io import load_checkpoint
 from ptbxl_torch.ops.kernels import fused_ecgcnn as k2
 from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
@@ -42,6 +47,22 @@ def launch_ms(fn) -> list:
                      and not getattr(e, "is_user_annotation", False)),
                     key=lambda e: e.time_range.start)
     return [[e.name[:80], e.device_time_total / 1e3] for e in events]
+
+
+def block_ptxas(log: str) -> dict:
+    """{"CinP,BN,RM,CTAs,steps,in,out": "<registers, barriers, smem>; <stack,
+    spills>"} for each ``wgmma_conv_block_kernel`` in an ``-Xptxas -v``
+    report (the template arguments read from the mangled name)."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        if "wgmma_conv_block_kernel" not in name:
+            continue
+        args = ",".join(re.findall(r"L[ib](\d+)E", name.split("wgmma_conv_block_kernelI", 1)[1]))
+        lines = [ln.split("info    : ")[-1].strip() for ln in chunk.splitlines()
+                 if "Used" in ln or "spill" in ln]
+        out[args] = "; ".join(lines)
+    return out
 
 
 def run(batches, iters: int) -> dict:
@@ -74,7 +95,9 @@ def main(argv=None) -> int:
         print("probe_hybrid: needs a CUDA GPU", file=sys.stderr)
         return 2
     result = {"device": torch.cuda.get_device_name(0), "iters": args.iters,
-              "batch": run(args.batch, args.iters)}
+              "batch": run(args.batch, args.iters),
+              "ptxas": block_ptxas(_build.build_all()["hybrid_wgmma"].with_suffix(".log")
+                                   .read_text())}
     text = json.dumps(result)
     print(text, flush=True)
     if args.out:

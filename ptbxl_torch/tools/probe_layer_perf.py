@@ -4,7 +4,8 @@
 
 For each of the ECGCNN's four conv layers (``LAYERS``), one layer conv k=15
 + bias + ReLU + MaxPool(2) on a pre-padded input ``[B, T+14, Cin]`` f32
-(bf16 operands, f32 sums): the im2col mode (the tensor-core conv block), the
+(bf16 operands, f32 sums): the im2col mode (K4's ``wgmma`` conv block of
+``ptbxl_torch/csrc/hybrid_wgmma.cu`` on a VALID f32 input, f32 out), the
 direct mode (K2's conv block, 15 shifted products) and cuDNN's bf16 conv +
 bias + ReLU + pool (the probe's ``xla_layer``).  Prints microseconds,
 TFLOP/s and the layer's bound (the larger of its operations at 989 TFLOP/s

@@ -6,7 +6,9 @@ For each of the ECGCNN's four conv layers (``LAYERS``: T_in, Cin, Cout and
 the padded channel count Cpad), P4's layer (``conv_layer_cf``: conv k=15
 over all Cpad channels with bf16 operands and f32 sums, + bias, ReLU, floor
 MaxPool(2)) on a channel-major input ``[B, Cpad, T+14]`` f32, written
-``[B, Cout, T/2]``, beside P3's layer on the same layer (``conv_layer``, in
+``[B, Cout, T/2]``, on K4's ``wgmma`` conv block
+(``ptbxl_torch/csrc/hybrid_wgmma.cu``: the rows transposed as they are
+staged, the pooled tile written channel-major), beside P3's layer on the same layer (``conv_layer``, in
 its im2col and direct modes, channels-last) and cuDNN's bf16 ``F.conv1d`` on
 the NCL layout + bias + ReLU + pool.  Prints microseconds, TFLOP/s and P4's
 bound (the larger of its operations, 2*15*Cpad*Cout*T a record, at 989

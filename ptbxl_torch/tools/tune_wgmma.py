@@ -91,8 +91,11 @@ def ptxas(log: str, key: str) -> dict:
 
 
 def tile_key(cin_p: int, row: tuple) -> str:
-    """The template arguments of a tile's kernels, as they are mangled."""
-    return "wgmma_conv_block_kernelILi{}ELi{}ELi{}ELi{}ELi{}E".format(cin_p, *row[1:])
+    """The template arguments of a tile's K4 kernels, as they are mangled: the
+    tile, then K4's input policy (raw f32 for CinP 16, else bf16), so that the
+    same tile's P3/P4 layer kernels are left out."""
+    return "wgmma_conv_block_kernelILi{}ELi{}ELi{}ELi{}ELi{}ELi{}E".format(
+        cin_p, *row[1:], int(cin_p == 16))
 
 
 def start_builds(text: str) -> dict:

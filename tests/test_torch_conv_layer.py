@@ -1,10 +1,13 @@
 """P3's conv layer (``conv_layer`` in ptbxl_torch/ops/kernels/hybrid_ecgcnn.py) and
-the port of tools/probe_layer_perf.py, against the JAX probe's ``xla_layer``.
+the port of tools/probe_layer_perf.py, against the JAX probe's ``xla_layer``
+and its Pallas kernel (``make_pallas_layer``, both modes, in TPU interpret
+mode).
 
 tools/probe_layer_perf.py is imported by path (``tools`` is no package).  On
 the CPU the port's wrapper takes its plain version; the CUDA kernels (the
-tensor-core conv block for ``im2col``, K2's conv block for ``direct``) are
-held against it on the card by chip_smoke.py.
+``wgmma`` conv block for ``im2col``, K2's conv block for ``direct``) are
+held against it on the card by chip_smoke.py.  The ``wgmma`` block's tiled
+route is emulated here (``wgmma_conv_block_plain(..., valid=True)``).
 """
 
 import importlib.util
@@ -16,6 +19,7 @@ import pytest
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4  # noqa: E402
 from ptbxl_torch.tools import probe_layer_perf as port_probe  # noqa: E402
@@ -69,6 +73,30 @@ def test_odd_length_floors_the_pool(jax_probe, mode):
                               mode).numpy()
     assert got.shape == (2, 250, 128)
     np.testing.assert_allclose(got, want, atol=TOL)
+
+
+# each reference layer's Cin -> Cout at a small T (one odd: the floor)
+SMALL = [(64, 12, 32), (48, 32, 64), (33, 64, 128), (20, 128, 256)]
+
+
+@pytest.mark.parametrize("mode", k4.MODES)
+@pytest.mark.parametrize("t_in,cin,cout", SMALL)
+def test_plain_and_wgmma_route_match_pallas_interpret(jax_probe, t_in, cin, cout, mode):
+    """The probe's Pallas kernel (b_tile=2) in TPU interpret mode against the
+    plain version of its mode and against the ``wgmma`` block's tiled route,
+    which the card runs for both (1e-4: the same bf16 products, f32 sums in
+    another order)."""
+    x, w, bias = _layer(t_in, cin, cout)
+    fn = jax_probe.make_pallas_layer(t_in, cin, cout, mode, 2)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fn(jnp.asarray(w), jnp.asarray(bias), jnp.asarray(x)))
+    xt, wt, bt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias)
+    got = k4.conv_layer_plain(xt, wt, bt, mode).numpy()
+    route = k4.wgmma_conv_block_plain(xt, k4.wg_weight(wt.view(15, cin, cout)), bt,
+                                      valid=True).numpy()
+    assert got.shape == route.shape == want.shape == (2, t_in // 2, cout)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    np.testing.assert_allclose(route, want, atol=TOL, rtol=0)
 
 
 def test_cpu_wrapper_dispatches_to_plain():

@@ -140,13 +140,94 @@ def test_too_many_labels_raises(models):
         k4.hybrid_ecgcnn_logits(torch.zeros(1, 256, 12), wide)
 
 
-def test_tc_weight_pads_channels_to_16():
-    """Cin=12 -> 16 zero channels, so no 16-wide reduction slice straddles two taps."""
-    w = torch.from_numpy(np.random.default_rng(8).standard_normal((15, 12, 32), dtype=np.float32))
-    wt = k4.tc_weight(w)
-    assert wt.shape == (15, 16, 32) and wt.dtype == torch.bfloat16
-    torch.testing.assert_close(wt[:, :12].float(), w.to(torch.bfloat16).float(), rtol=0, atol=0)
-    assert not wt[:, 12:].any()
+# P3's and P4's layers on the wgmma block: (T, Cin, Cout, CinP) a layer of
+# the ECGCNN at small T; 37 is odd (the floor), 257 puts the last input row
+# past every tile of BM = 256 rows
+LAYER_T = [(64, 12, 32, 16), (37, 32, 64, 32), (257, 64, 128, 64), (31, 128, 256, 128)]
+
+
+def _layer_input(t, cin, cout, channel_major, seed):
+    rng = np.random.default_rng(seed)
+    shape = (2, cin, t + 14) if channel_major else (2, t + 14, cin)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((15 * cin, cout)) * 0.05).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(cout) * 0.01).astype(np.float32))
+    return x, w, b
+
+
+@pytest.mark.parametrize("layout", ["p3", "p4", "p4_tc"])
+@pytest.mark.parametrize("t,cin,cout,cin_p", LAYER_T)
+def test_wgmma_layer_emulation_matches_plain_layer(t, cin, cout, cin_p, layout):
+    """P3's and P4's tiled route (the wgmma block's tiles on a VALID f32
+    input, f32 out, P4's channel-major input and either output layout)
+    against their plain versions: the same bf16 products, f32 sums in
+    another order (1e-4, as the probes' gates)."""
+    cm = layout != "p3"
+    x, w, b = _layer_input(t, cin_p if cm else cin, cout, cm, t + cin)
+    wp = k4.wg_weight(w.view(15, -1, cout))
+    if cm:
+        tr = layout == "p4"
+        got = k4.wgmma_conv_block_plain(x, wp, b, valid=True, channel_major=True, transpose_out=tr)
+        want = k4.conv_layer_cf_plain(x, w, b, tr)
+    else:
+        got = k4.wgmma_conv_block_plain(x, wp, b, valid=True)
+        want = k4.conv_layer_plain(x, w, b)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("t,cin,cout,cin_p", LAYER_T)
+def test_layer_on_padded_input_is_the_k4_block_bit_for_bit(t, cin, cout, cin_p):
+    """P3's tiled route on a zero-padded bf16-valued input, rounded to bf16,
+    is K4's block on the unpadded input bit for bit: the same tiles, the same
+    staged rows and the same k16 steps in the same order (block 0 reads f32,
+    the others bf16 with Cin == CinP)."""
+    rng = np.random.default_rng(t)
+    xb = torch.from_numpy(rng.standard_normal((2, t, cin)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((15, cin, cout)) * 0.05).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(cout) * 0.01).astype(np.float32))
+    wp = k4.wg_weight(w)
+    block = k4.wgmma_conv_block_plain(xb.float() if cin_p == 16 else xb, wp, b)
+    layer = k4.wgmma_conv_block_plain(F.pad(xb.float(), (0, 0, k4.PAD, k4.PAD)), wp, b,
+                                      valid=True)
+    assert torch.equal(layer.to(torch.bfloat16), block)
+
+
+@pytest.mark.parametrize("case", ["misaligned", "cin_not_4", "transpose_channels_last",
+                                  "cm_padded_channels", "too_short", "no_tile", "stats",
+                                  "cm_without_valid", "bias"])
+def test_wgmma_layer_checks_raise(case):
+    """What the layer entry refuses raises before any launch: a channels-last
+    input not 16-byte aligned (its rows land by 16-byte cp.async), Cin not a
+    multiple of 4, transpose_out without a channel-major input, a
+    channel-major input without all CinP channels, fewer than 16 input rows,
+    a CinP -> Cout the tile table lacks, stats or sums, the layer's layouts on
+    K4's SAME block, a wrong bias."""
+    x, w, b = _layer_input(40, 32, 64, False, 0)
+    wp = k4.wg_weight(w.view(15, 32, 64))
+    kw, match = {"valid": True}, None
+    if case == "misaligned":
+        x, match = torch.zeros(2 * 54 * 32 + 1)[1:].view(2, 54, 32), "16-byte aligned"
+    elif case == "cin_not_4":
+        x, wp, match = torch.zeros(2, 54, 30), k4.wg_weight(torch.zeros(15, 30, 64)), "Cin % 4"
+    elif case == "transpose_channels_last":
+        kw["transpose_out"], match = True, "channel-major"
+    elif case == "cm_padded_channels":
+        x, kw["channel_major"] = torch.zeros(2, 28, 54), True
+        wp, match = k4.wg_weight(torch.zeros(15, 28, 64)), "all CinP"
+    elif case == "too_short":
+        x, match = x[:, :15].contiguous(), "T >= 2"
+    elif case == "no_tile":
+        x, match = torch.zeros(2, 54, 48), "CinP -> Cout"
+        wp = torch.zeros(1, 45, 2, 6, 8, 8, dtype=torch.bfloat16)  # 48 -> 48
+    elif case == "stats":
+        kw["stats"], match = torch.ones(2, 32, 2), "no stats"
+    elif case == "cm_without_valid":
+        kw, match = {"channel_major": True}, "valid=True"
+    else:
+        b, match = b[:32], "b must be"
+    with pytest.raises(ValueError, match=match):
+        k4.wgmma_conv_block_plain(x, wp, b, **kw)
 
 
 @pytest.mark.parametrize("block", [0, 1, 2, 3])

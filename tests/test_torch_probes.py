@@ -7,7 +7,8 @@ their Pallas kernels run in TPU interpret mode where Mosaic's interpreter
 takes them (p3 and p4 pass a negative roll shift, which it refuses: the
 TPU finding p3b answers).  P4: ``tools/probe_sublane_conv.py::make_layer``
 in interpret mode at small shapes, both output layouts, against
-``conv_layer_cf_plain`` at 1e-4 (bf16 operands, f32 sums in another order).
+``conv_layer_cf_plain`` and the ``wgmma`` block's emulated route at 1e-4
+(bf16 operands, f32 sums in another order).
 The probe tools themselves run on the host and pass every gate.
 """
 
@@ -113,9 +114,13 @@ def test_tf32_round_is_cvt_rna():
     assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
 
 
-@pytest.mark.parametrize("t_in,cout,cpad", [(64, 32, 16), (31, 64, 32)])
+@pytest.mark.parametrize("t_in,cout,cpad", [(64, 32, 16), (31, 64, 32), (40, 128, 64),
+                                           (20, 256, 128)])
 @pytest.mark.parametrize("transpose_out", [True, False])
 def test_conv_layer_cf_plain_matches_pallas_interpret(t_in, cout, cpad, transpose_out):
+    """The Pallas kernel in interpret mode against the plain version and the
+    ``wgmma`` block's tiled route on the channel-major input (the card's),
+    each of the reference layers' Cpad -> Cout, both output layouts."""
     rng = np.random.default_rng(t_in)
     b_tile = 2
     x = rng.standard_normal((2, cpad, t_in + 14)).astype(np.float32)
@@ -127,6 +132,10 @@ def test_conv_layer_cf_plain_matches_pallas_interpret(t_in, cout, cpad, transpos
                                  torch.from_numpy(bias), transpose_out)
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    wp = k4.wg_weight(torch.from_numpy(w).view(15, cpad, cout))
+    route = k4.wgmma_conv_block_plain(torch.from_numpy(x), wp, torch.from_numpy(bias), valid=True,
+                                      channel_major=True, transpose_out=transpose_out)
+    np.testing.assert_allclose(route.numpy(), want, atol=1e-4, rtol=0)
     # the wrapper takes the plain version for a CPU tensor
     same = k4.conv_layer_cf(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
                             transpose_out)

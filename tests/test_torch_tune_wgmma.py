@@ -22,12 +22,12 @@ def folded():
     state, _ = load_checkpoint(CKPT)
     return k2.fold_bn_into_conv(state)
 
-LOG = """ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_123wgmma_conv_block_kernelILi64ELi128ELi2ELi1ELi2ELb0ELb0EEEvPKv' for 'sm_90a'
-ptxas info    : Function properties for _ZN3_GLOBAL__N_123wgmma_conv_block_kernelILi64ELi128ELi2ELi1ELi2ELb0ELb0EEEvPKv
+LOG = """ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_123wgmma_conv_block_kernelILi64ELi128ELi2ELi1ELi2ELi0ELi0EEEvPKv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3_GLOBAL__N_123wgmma_conv_block_kernelILi64ELi128ELi2ELi1ELi2ELi0ELi0EEEvPKv
     32 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads
 ptxas info    : Used 168 registers, used 2 barriers, 32 bytes cumulative stack size
-ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_123wgmma_conv_block_kernelILi32ELi64ELi1ELi2ELi6ELb0ELb1EEEvPKv' for 'sm_90a'
-ptxas info    : Function properties for _ZN3_GLOBAL__N_123wgmma_conv_block_kernelILi32ELi64ELi1ELi2ELi6ELb0ELb1EEEvPKv
+ptxas info    : Compiling entry function '_ZN3_GLOBAL__N_123wgmma_conv_block_kernelILi32ELi64ELi1ELi2ELi6ELi0ELi1EEEvPKv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3_GLOBAL__N_123wgmma_conv_block_kernelILi32ELi64ELi1ELi2ELi6ELi0ELi1EEEvPKv
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 83 registers, used 2 barriers
 """
@@ -148,3 +148,22 @@ def test_fused_deep_tiling_is_blocks_2_and_3(folded, t2):
                                None, True)
     assert want.shape == (2, -(-2 * (t2 // 4) // 128), 256)
     torch.testing.assert_close(_deep_tiles_emulated(x2, folded), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("policies", ["Lb0ELb0E", "Li3ELi3E"])
+def test_probe_hybrid_keys_each_blocks_ptxas(policies):
+    """probe_hybrid's report of every ``wgmma_conv_block_kernel`` in a build's
+    ``-Xptxas -v`` log, keyed by the template arguments read from the mangled
+    name, bool or int policies alike (so two commits' reports line up)."""
+    from ptbxl_torch.tools import probe_hybrid
+
+    log = LOG.replace("Li0ELi0E", policies)
+    key = "64,128,2,1,2," + ("0,0" if policies.startswith("Lb") else "3,3")
+    got = probe_hybrid.block_ptxas(log)
+    assert set(got) == {key, "32,64,1,2,6,0,1"}
+    assert got[key] == ("32 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads; "
+                        "Used 168 registers, used 2 barriers, 32 bytes cumulative stack size")
+    assert got["32,64,1,2,6,0,1"].endswith("Used 83 registers, used 2 barriers")
+    # a P3/P4 instantiation of a tile is not one of K4's kernels of that tile
+    assert tune_wgmma.ptxas(LOG.replace("Li0ELi0E", "Li2ELi2E"),
+                            tune_wgmma.tile_key(64, (128, 128, 2, 1, 2)))["registers"] is None
