@@ -4,10 +4,13 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the hand-written kernels from ``ptbxl_torch/csrc`` with nvcc, holds
-each against its plain PyTorch version on the card (K1 z-score, K2 ECGCNN
-forward and each of its four 3xTF32 conv blocks, K3 FiLM multimodal forward,
-K6 ReLU -> MaxPool backward, K4 hybrid forward and each of its four ``wgmma``
-conv blocks, K5 wide z-score, P3 and P4 conv layers (both on K4's ``wgmma``
+each against its plain PyTorch version on the card (K1 z-score at B=1, 512
+and 8192, on a ragged T=37 through clusters of 2, 4 and 8 CTAs, its output
+bit for bit against ``(x - mean) / sd`` from its own stats, its division
+against IEEE division; K2 ECGCNN forward and each of its four 3xTF32 conv
+blocks, K3 FiLM multimodal forward, K6 ReLU -> MaxPool backward, K4 hybrid
+forward and each of its four ``wgmma`` conv blocks, K5 wide z-score (the
+ragged T=37 too), P3 and P4 conv layers (both on K4's ``wgmma``
 block: P3's output on a zero-padded input also bit for bit against K4's
 launch), the 13 P1/P2 probes, each probe also timed in a CUDA graph), drives
 the main paths (``Predictor`` on the baseline and AF checkpoints, then on the
@@ -157,22 +160,40 @@ def k3_flops_bytes(x: torch.Tensor, d: torch.Tensor, folded) -> tuple:
     return flops, nbytes + d.numel() * 4
 
 
-def launch_breakdown(fn) -> list:
-    """[name, device ms] of each kernel ``fn`` launches, from the profiler (CUPTI)."""
+def launch_breakdown(fn, attempts: int = 3) -> list:
+    """[name, device ms] of each kernel ``fn`` launches, from the profiler (CUPTI).
+
+    The profiler can miss the first launches of a window, so each window is a
+    traced warm-up step that is discarded (a call), then the kept step: a call,
+    a marker kernel (torch.cuda._sleep's spin_kernel) and the call that is
+    kept.  A window whose marker was lost, or that recorded nothing after it,
+    is profiled again, up to ``attempts`` windows."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # user annotations (e.g. the optimizer's step range) sit on the device
-    # timeline too; only kernels, copies and sets are kept
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False)),
-                    key=lambda e: e.time_range.start)
-    return [[e.name[:60], e.device_time_total / 1e3] for e in events]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            fn()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        # user annotations (e.g. the optimizer's step range) sit on the device
+        # timeline too; only kernels, copies and sets are kept
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if marks and marks[-1] + 1 < len(events):
+            return [[e.name[:60], e.device_time_total / 1e3] for e in events[marks[-1] + 1:]]
+    raise AssertionError(f"launch_breakdown: no marker kernel and launches after it "
+                         f"in {attempts} profiled windows")
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple:
@@ -683,18 +704,115 @@ def phase_k4_blocks(x_raw: torch.Tensor, folded) -> dict:
     return {"phase": "k4_blocks", "batch": by_batch}
 
 
+def phase_k1(x_raw: torch.Tensor, gen: torch.Generator) -> dict:
+    """K1 (both entries) against its plain version: f32 at 1e-5, bf16 at 2e-2,
+    the stats at 1e-5, at B=512 (the harsh-offset data too), B=1 and B=8192
+    (the hybrid row's batch); a ragged T=37 (a bf16 record is 888 bytes, so
+    records and, at k=8, 120-byte pieces are not 16-byte multiples), through
+    the wrappers, through plans of 2, 4 and 8 CTAs, and on an offset view;
+    the seam gate: K1's f32 output equal bit for bit to ``(x - mean) / sd``
+    built on the card from ``zscore_stats``' own output on the same data; and
+    the kernels' division against IEEE division (``tools/check_div_rn.py``)."""
+    from ptbxl_torch.ops.kernels import zscore as k1
+    from ptbxl_torch.tools import check_div_rn
+
+    def seam(x: torch.Tensor) -> float:
+        st = k1.zscore_stats(x)
+        return max_diff(k1.zscore(x), (x - st[..., 0][:, None, :]) / st[..., 1][:, None, :])
+
+    info = {"phase": "k1", "shape": list(x_raw.shape)}
+    info["max_abs_err_f32"] = gate("zscore f32",
+                                   max_diff(k1.zscore(x_raw), k1.zscore_plain(x_raw)), 1e-5)
+    x16 = x_raw.to(torch.bfloat16)
+    info["max_abs_err_bf16"] = gate("zscore bf16", max_diff(k1.zscore(x16), k1.zscore_plain(x16)),
+                                    2e-2)
+    info["max_abs_err_stats"] = gate("zscore_stats", max_diff(k1.zscore_stats(x_raw),
+                                                              k1.zscore_stats_plain(x_raw)), 1e-5)
+    # an output of the other size leaves through a staging buffer
+    info["max_abs_err_mixed"] = {
+        "f32 in, bf16 out": gate("zscore f32 -> bf16", max_diff(
+            k1.zscore(x_raw, torch.bfloat16), k1.zscore_plain(x_raw, torch.bfloat16)), 2e-2),
+        "bf16 in, f32 out": gate("zscore bf16 -> f32", max_diff(
+            k1.zscore(x16, torch.float32), k1.zscore_plain(x16, torch.float32)), 1e-5)}
+    # harsher data: a large DC offset beside a small std (per-lead offset N(0, 3),
+    # scale down to 0.1), where f32 sums in one order or another lose bits
+    x_harsh = raw_batch(BIG, gen, scale_lo=0.1, offset_sd=3.0)
+    info["max_abs_err_f32_harsh"] = gate(
+        "zscore f32 harsh", max_diff(k1.zscore(x_harsh), k1.zscore_plain(x_harsh)), 1e-5)
+    info["max_abs_err_stats_harsh"] = gate(
+        "zscore_stats harsh", max_diff(k1.zscore_stats(x_harsh), k1.zscore_stats_plain(x_harsh)),
+        1e-5)
+    seams = {"B=512": gate("seam B=512", seam(x_raw), 0.0),
+             "B=512 harsh": gate("seam B=512 harsh", seam(x_harsh), 0.0)}
+    del x_harsh
+    by_batch = {}
+    for b in (1, HYBRID_B):
+        xb = x_raw[:1].contiguous() if b == 1 else raw_batch(b, gen)
+        by_batch[str(b)] = {
+            "f32": gate(f"zscore f32 B={b}", max_diff(k1.zscore(xb), k1.zscore_plain(xb)), 1e-5),
+            "stats": gate(f"zscore_stats B={b}", max_diff(k1.zscore_stats(xb),
+                                                         k1.zscore_stats_plain(xb)), 1e-5)}
+        seams[f"B={b}"] = gate(f"seam B={b}", seam(xb), 0.0)
+        del xb
+    info["max_abs_err_by_batch"] = by_batch
+    # the ragged T: the wrappers' plans, then plans of 2, 4 and 8 CTAs (launches
+    # made here to compare count nowhere on a main path)
+    x37 = raw_batch(14, gen, scale_lo=0.1, offset_sd=3.0)[:, :37].contiguous()
+    ragged = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        name = str(dt)[6:]
+        for label, xr in (("B=13", x37[:13].to(dt)), ("B=13 offset view", x37.to(dt)[1:])):
+            ragged[f"{label} {name}"] = gate(f"zscore T=37 {label} {name}", max_diff(
+                k1.zscore(xr), k1.zscore_plain(xr)), tol)
+            ragged[f"{label} {name} stats"] = gate(f"zscore_stats T=37 {label} {name}", max_diff(
+                k1.zscore_stats(xr), k1.zscore_stats_plain(xr)), 1e-5)
+            other = torch.bfloat16 if dt == torch.float32 else torch.float32
+            ragged[f"{label} {name} -> {str(other)[6:]}"] = gate(
+                f"zscore T=37 {label} {name} -> {other}",
+                max_diff(k1.zscore(xr, other), k1.zscore_plain(xr, other)), 2e-2)
+        xr = x37[:13].to(dt)
+        for kk in (2, 4, 8):
+            for entry in ("zscore", "zscore_stats"):
+                plan = k1.cluster_plan(13, 37, LEADS, LEADS, dt, dt, entry, k=kk)
+                got = k1.launch_plan(xr, plan, entry)
+                want = (k1.zscore_stats_plain(xr) if entry == "zscore_stats"
+                        else k1.zscore_plain(xr))
+                ragged[f"k={plan.k} {entry} {name}"] = gate(
+                    f"{entry} T=37 k={plan.k} {name}", max_diff(got, want),
+                    1e-5 if entry == "zscore_stats" else tol)
+        if dt == torch.float32:
+            seams["T=37"] = gate("seam T=37", seam(xr), 0.0)
+    info["max_abs_err_ragged_t37"] = ragged
+    info["seam_max_abs_diff"] = seams
+    div = check_div_rn.run(seeds=2)
+    if div["mismatches"]:
+        raise AssertionError(f"div_rn differs from IEEE division: {div}")
+    info["div_rn_vs_ieee"] = div
+    torch.cuda.synchronize()
+    # the plans the main paths take (k, piece, threads, shared memory a CTA)
+    info["plans"] = {f"{entry} {str(dt)[6:]} B={b}": k1.cluster_plan(
+        b, T_FULL, LEADS, w, dt, dt, entry, per=8 if entry == "zscore_wide" else None)._asdict()
+        for entry, dt, b, w in (("zscore", torch.float32, 1, LEADS),
+                                ("zscore", torch.float32, BIG, LEADS),
+                                ("zscore_stats", torch.float32, HYBRID_B, LEADS),
+                                ("zscore", torch.bfloat16, PROBE_ZS_B, LEADS),
+                                ("zscore_wide", torch.bfloat16, PROBE_ZS_B, 480))}
+    return info
+
+
 def phase_k5(x_raw: torch.Tensor, gen: torch.Generator) -> dict:
     """K5 against its plain version and against K1: f32 at 1e-5 (the harsh
     offset data too), bf16 in and out at 2e-2; widths 36 (on T=240, the JAX
-    test's geometry: 36 does not divide 5000*12), 240, 480, 1200; B=13 and 512
-    (13 is not a multiple of block_b)."""
+    test's geometry: 36 does not divide 5000*12), 12 and 444 on the ragged
+    T=37, 240, 480, 1200; B=13 and 512 (13 is not a multiple of block_b)."""
     from ptbxl_torch.ops.kernels import zscore as k1
 
     x_harsh = raw_batch(BIG, gen, scale_lo=0.1, offset_sd=3.0)
     data = {"raw": x_raw, "harsh": x_harsh}
     errs = {}
     for label, xd in data.items():
-        for width, t in ((36, 240), (240, T_FULL), (480, T_FULL), (1200, T_FULL)):
+        for width, t in ((36, 240), (12, 37), (444, 37), (240, T_FULL), (480, T_FULL),
+                         (1200, T_FULL)):
             for b, block_b in ((13, 8), (BIG, 8), (BIG, 16)):
                 if width != 480 and block_b != 8:
                     continue
@@ -757,11 +875,11 @@ def phase_hybrid(folded) -> dict:
     plain version on the same batch (512 records at a time), 5e-3 as in
     ``phase_k4``."""
     from ptbxl_torch import bench
-    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4, zscore as k1
 
     dev = torch.device("cuda")
     clock = bench.Clock(dev)
-    k4.launches = 0
+    k4.launches = k1.launches = 0
     forward = bench.build_forward("hybrid", "bf16", dev)
     reference = bench.build_forward("framework", "f32", dev)
     with torch.no_grad():
@@ -771,15 +889,17 @@ def phase_hybrid(folded) -> dict:
         x_big = bench._random_batch(HYBRID_B, torch.float32, dev)
         probs = forward(x_big)
     torch.cuda.synchronize()
-    launches = k4.launches
+    launches, k1_launches = k4.launches, k1.launches
     gate("hybrid demo-pack parity vs f32 highest", parity[1], bench.PARITY_TOL)
-    if launches <= 0 or not (torch.isfinite(probs).all() and probs.shape == (HYBRID_B, 5)):
-        raise AssertionError(f"hybrid row: {launches} launches, probs {tuple(probs.shape)}")
+    if launches <= 0 or k1_launches <= 0 or not (torch.isfinite(probs).all()
+                                                 and probs.shape == (HYBRID_B, 5)):
+        raise AssertionError(f"hybrid row: {launches} K4 and {k1_launches} K1 launches, "
+                             f"probs {tuple(probs.shape)}")
     with torch.no_grad():
         want = torch.cat([torch.sigmoid(k4.hybrid_ecgcnn_logits_plain(xc, folded))
                           for xc in x_big.split(BIG)])
     err = gate(f"hybrid_ecgcnn B={HYBRID_B} bfloat16 vs plain", max_diff(probs, want), 5e-3)
-    return {"phase": "hybrid", "launches": {"hybrid_ecgcnn": launches},
+    return {"phase": "hybrid", "launches": {"hybrid_ecgcnn": launches, "zscore": k1_launches},
             "rows": rows, "prob_err": parity[1], "max_abs_err_vs_plain": err}
 
 
@@ -1276,23 +1396,11 @@ def main(argv=None) -> int:
 
     # -- phase 2: K1 against its plain version --------------------------------
     x_raw = raw_batch(BIG, gen)
-    err_k1 = gate("zscore f32", max_diff(k1.zscore(x_raw), k1.zscore_plain(x_raw)), 1e-5)
-    x16 = x_raw.to(torch.bfloat16)
-    err_k1_16 = gate("zscore bf16", max_diff(k1.zscore(x16), k1.zscore_plain(x16)), 2e-2)
-    err_st = gate("zscore_stats", max_diff(k1.zscore_stats(x_raw), k1.zscore_stats_plain(x_raw)),
-                  1e-5)
-    # harsher data: a large DC offset beside a small std (per-lead offset N(0, 3),
-    # scale down to 0.1), where f32 sums in one order or another lose bits
-    x_harsh = raw_batch(BIG, gen, scale_lo=0.1, offset_sd=3.0)
-    err_harsh = gate("zscore f32 harsh", max_diff(k1.zscore(x_harsh), k1.zscore_plain(x_harsh)),
-                     1e-5)
-    err_st_harsh = gate("zscore_stats harsh", max_diff(k1.zscore_stats(x_harsh),
-                                                       k1.zscore_stats_plain(x_harsh)), 1e-5)
-    del x_harsh
-    torch.cuda.synchronize()
-    emit({"phase": "k1", "shape": list(x_raw.shape), "max_abs_err_f32": err_k1,
-          "max_abs_err_bf16": err_k1_16, "max_abs_err_stats": err_st,
-          "max_abs_err_f32_harsh": err_harsh, "max_abs_err_stats_harsh": err_st_harsh})
+    k1_info = phase_k1(x_raw, gen)
+    err_k1, err_k1_16 = k1_info["max_abs_err_f32"], k1_info["max_abs_err_bf16"]
+    err_st, err_harsh = k1_info["max_abs_err_stats"], k1_info["max_abs_err_f32_harsh"]
+    err_st_harsh = k1_info["max_abs_err_stats_harsh"]
+    emit(k1_info)
 
     # -- phase 3: K2 against its plain version --------------------------------
     state, _ = load_checkpoint(CKPT)
@@ -1519,6 +1627,7 @@ def main(argv=None) -> int:
 
     p_kern = Predictor.from_checkpoint(CKPT, engine="kernel")
     crossover = {}
+    k1.launches = 0
     for b in CROSSOVER_N:
         xb = raw_batch(b, gen)
         crossover[b] = {
@@ -1526,8 +1635,12 @@ def main(argv=None) -> int:
             "framework_f32_ms": time_ms(lambda: p_hi._forward(xb), reps=5),
             "framework_bf16_ms": time_ms(lambda: p_lo._forward(xb), reps=5),
         }
+    torch.cuda.synchronize()
+    crossover_k1 = k1.launches  # K1's stats entry before every kernel-engine chunk
+    if crossover_k1 <= 0:
+        raise AssertionError("the crossover sweep launched no zscore kernel")
     emit({"phase": "crossover", "ms": crossover, "kernel_max_batch": inference.KERNEL_MAX_BATCH,
-          **crossover_n(crossover)})
+          "launches": {"zscore": crossover_k1}, **crossover_n(crossover)})
 
     # the same for the multimodal Predictor (K3 vs the framework engine)
     p_mm_kern = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", engine="kernel")
@@ -1615,6 +1728,11 @@ def main(argv=None) -> int:
           "k5_plain_ms": k5_plain_ms, "p3_plain_ms": p3_plain_ms,
           "k5_max_abs_err_probe": k5_probe_err, "p3_max_abs_err_probe": p3_probe_err})
     emit({"phase": "k4_breakdown_ms", "batch": {str(b): v for b, v in k4_breakdown.items()}})
+    # K1's and K5's cases at the main paths' shapes (both K1 entries at B=1, 512,
+    # 8192, the stats beside torch.std_mean; K5 at the probe's batch), each with
+    # its cluster plan's k and shared memory a CTA
+    zs_cases = probe_zscore.time_cases(dev)
+    emit({"phase": "k1_cases", "rows": zs_cases})
 
     # -- phase 8: P4, P1 and P2 (gates, then their main paths: the three probe
     # tools), the data layer, the CLIs and the pipeline rows on a synthetic tree
@@ -1644,7 +1762,9 @@ def main(argv=None) -> int:
     one = times[1]
     sources = {
         "zscore": ("ptbxl_torch/csrc/zscore.cu", "ptbxl_tpu/ops/pallas/zscore.py:44",
-                   max(err_k1, err_st, err_harsh, err_st_harsh)),
+                   max([err_k1, err_st, err_harsh, err_st_harsh]
+                       + [v for d in k1_info["max_abs_err_by_batch"].values()
+                          for v in d.values()])),
         "fused_ecgcnn": ("ptbxl_torch/csrc/fused_ecgcnn.cu",
                          "ptbxl_tpu/ops/pallas/fused_ecgcnn.py:89",
                          max(v for k, v in k2_err.items() if k.endswith("float32"))),
@@ -1652,9 +1772,12 @@ def main(argv=None) -> int:
                              "ptbxl_tpu/ops/pallas/fused_ecgcnn.py:260",
                              max(v for k, v in k3_err.items() if k.endswith("float32"))),
     }
-    # launches on the main paths: the baseline/AF path and the multimodal path
+    # launches on the main paths: the baseline/AF path and the multimodal path; K1's
+    # stats entry also leads the bench's hybrid row and every crossover chunk
     by_path = {name: {"ecgcnn": launches.get(name, 0), "multimodal": launches_mm[name]}
                for name in sources}
+    by_path["zscore"].update(bench_hybrid_row=hybrid_info["launches"]["zscore"],
+                             crossover=crossover_k1)
     kernels = []
     for name, (src, replaces, err) in sources.items():
         t5, t1 = big[name], one[name]
@@ -1679,6 +1802,11 @@ def main(argv=None) -> int:
         else:
             entry["max_abs_err_bf16"] = err_k1_16
             entry["stats_ms"] = t5["stats_ms"]
+            # each case: ms, bytes bound, PyTorch call, cluster size and shared memory
+            entry["cases"] = [r for r in zs_cases if r["entry"] != "zscore_wide"]
+            entry["seam_max_abs_diff"] = k1_info["seam_max_abs_diff"]
+            entry["max_abs_err_by_batch"] = k1_info["max_abs_err_by_batch"]
+            entry["max_abs_err_ragged_t37"] = max(k1_info["max_abs_err_ragged_t37"].values())
         kernels.append(entry)
     # K6: one B=64 train step's four launches; launches on the training path and
     # on the Grad-CAM path (baseline + multimodal)
@@ -1731,6 +1859,12 @@ def main(argv=None) -> int:
         "ms": zs["k5_b8"]["ms"], "plain_ms": k5_plain_ms, "bound_ms": zs["k5_b8"]["bound_ms"],
         "bound_by": "bytes", "library_ms": zs["torch_one_pass"]["ms"], "batch": PROBE_ZS_B,
         "k1_ms": zs["k1"]["ms"], "variants_ms": {k: v["ms"] for k, v in zs.items()},
+        "cases": [r for r in zs_cases if r["entry"] == "zscore_wide"],
+        "variants_k": {name: k1.cluster_plan(
+            PROBE_ZS_B, T_FULL, LEADS, width, torch.bfloat16, torch.bfloat16, "zscore_wide",
+            per=bb).k for name, width, bb in (("k5_b4", 480, 4), ("k5_b8", 480, 8),
+                                              ("k5_b16", 480, 16), ("k5_w240", 240, 8),
+                                              ("k5_w1200", 1200, 8))},
     })
     # P3: the four layers at the probe's batch, im2col mode (direct beside it);
     # the bound is the sum of the layers' own, named by the larger share
