@@ -12,7 +12,11 @@ blocks, K3 FiLM multimodal forward, K6 ReLU -> MaxPool backward, K4 hybrid
 forward and each of its four ``wgmma`` conv blocks, K5 wide z-score (the
 ragged T=37 too), P3 and P4 conv layers (both on K4's ``wgmma``
 block: P3's output on a zero-padded input also bit for bit against K4's
-launch), the 13 P1/P2 probes, each probe also timed in a CUDA graph), drives
+launch), the 13 P1/P2 probes, each probe also timed in a CUDA graph, and
+P1's TF32 dot and shifted concat beyond the probes' shapes: the dot at the
+smallest shape its plan admits, with several tiles and K != 256 and at the
+largest K, both forms, its rounding against ``tf32_round``, the concat on its
+float4 and 4-byte paths, at an odd row count and on a misaligned view), drives
 the main paths (``Predictor`` on the baseline and AF checkpoints, then on the
 multimodal checkpoint with demo vectors, Grad-CAM and demo importance on both,
 then ``train`` on the baseline ECGCNN at full width with a reload of its best
@@ -976,7 +980,16 @@ def phase_probe_tables() -> dict:
     from ptbxl_torch.tools import probe_mosaic, probe_mosaic2
 
     dev = torch.device("cuda")
-    out = {"phase": "probes", "tables": {}, "launches": {}}
+    # P1's extra gates (outside the counted paths): the TF32 dot at the
+    # smallest shape its plan admits, several tiles with K != 256 and the
+    # largest K, both forms; its rounding against tf32_round; p7 on both of
+    # its paths, at an odd To and on a misaligned view
+    gates = probe_mosaic.gate_cases(dev)
+    torch.cuda.synchronize()
+    bad = [name for name, g in gates.items() if not g["ok"]]
+    if bad:
+        raise AssertionError(f"P1 gate cases failed: {[(n, gates[n]) for n in bad]}")
+    out = {"phase": "probes", "tables": {}, "launches": {}, "p1_gates": gates}
     for name, probes in (("probe_mosaic", probe_mosaic.PROBES),
                          ("probe_mosaic2", probe_mosaic2.PROBES)):
         kp.launches = 0
@@ -1888,8 +1901,12 @@ def main(argv=None) -> int:
     })
     # P1 and P2: the two probe tables (every probe's kernel time, plain version,
     # library call and bytes bound, summed over the table)
-    for name, replaces in (("probe_mosaic", "tools/probe_mosaic.py:44"),
-                           ("probe_mosaic2", "tools/probe_mosaic2.py:35")):
+    for name, replaces, status in (
+            ("probe_mosaic", "tools/probe_mosaic.py:44",
+             "redesigned: p1/p2 on a wgmma TF32 dot with all of K resident on 128 CTAs, "
+             "p7 as float4 row copies"),
+            ("probe_mosaic2", "tools/probe_mosaic2.py:35",
+             "redesigned: the launch path, p9's FP32 dot on a cp.async ring")):
         prow = probe_info["tables"][name]
         n_ops = sum(r["bound"][0] for r in prow if r["bound"][1] == "operations")
         total_bound = sum(r["bound"][0] for r in prow)
@@ -1909,7 +1926,12 @@ def main(argv=None) -> int:
                                              "graph_ms", "plain_ms", "library_ms",
                                              "library_graph_ms", "library", "bound")}
                           for r in prow],
+            "status": status,
         })
+        if name == "probe_mosaic":
+            kernels[-1]["gate_cases"] = {
+                case: {k: g[k] for k in ("max_abs_err", "tol", "ctas", "path") if k in g}
+                for case, g in probe_info["p1_gates"].items()}
     # P4: the four layers at the probe's batch; P3's two modes and cuDNN beside it
     prows = p4_info["rows"]
     by_ops = sum(r["bound"][0] for r in prows if r["bound"][1] == "operations")

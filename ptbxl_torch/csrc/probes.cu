@@ -12,19 +12,35 @@
 // its input in shared memory where a block's share fits (a row, a tile, the
 // rows a window needs) and writes its result.
 //
-// Bound on the H100: every probe moves at most ~3 MB, so each is bound by its
-// bytes at 3.35 TB/s (about a microsecond) and in practice by the launch
-// itself; the dots are 134 MFLOP (0.27 us at 495 TFLOP/s TF32, 2.0 us at
-// 67 TFLOP/s FP32, which bounds p9).  A call's time is mostly the host's:
-// measured by tools/probe_dispatch.py, a data-movement probe's kernel takes
-// 2-4 us of device time and its launch 13-20 us of host work.  So every entry keeps
-// the host path short: it sets the device only when the caller's differs
-// (cudaGetDevice, not cudaSetDevice on every call), and the Python side binds
-// each entry once and passes the raw stream handle (ops/kernels/probes.py).
+// Bound on the H100: every probe moves at most ~3 MB, about a microsecond of
+// bytes at 3.35 TB/s, and a kernel launched back to back in a CUDA graph costs
+// about 2 us, so the data-movement probes are bound by the launch.  A call's
+// time outside a graph is mostly the host's (tools/probe_dispatch.py: 13-20
+// us of host work a launch), so every entry keeps the host path short: it
+// sets the device only when the caller's differs (cudaGetDevice, not
+// cudaSetDevice on every call), and the Python side binds each entry once and
+// passes the raw stream handle (ops/kernels/probes.py).
 //
-// Precision: p1 and p2 run on the tensor cores in TF32 (operands rounded by
-// cvt.rna.tf32, mma.sync m16n8k8, f32 sums), the card's counterpart of the
-// TPU's default product precision; p9 (HIGHEST) runs in full FP32 FMA.
+// p1 (TN, tools/probe_mosaic.py:54) and p2 (NT, :71) are [2048, 256] x
+// [256, 128] products in TF32: 134 MFLOP, 0.27 us at 495 TFLOP/s, and 3.3 MB,
+// 0.98 us at 3.35 TB/s.  What bounds them on the card is each CTA's first
+// read of its operands: 64 x 32 output tiles with all of K resident give 128
+// CTAs of 96 KB each, 12 MB out of L2 in one round trip a CTA.  So the kernel
+// (dot_wgmma_tf32_kernel) fills the card with one CTA an SM, puts every
+// operand row in flight before it waits (bulk copies on mbarriers for
+// K-major rows, cp.async for MN-major ones), rounds each element once
+// (cvt.rna) on its way to wgmma (B through one pass into the core-matrix
+// layout, A into register fragments), and runs the 32 k8 steps as two
+// commit groups (not K in stages of scalar loads, each stage waiting out its
+// own round trips).
+// p7 (:153) copies 393,888 bytes (0.12 us) and is bound by its launch: each
+// output row is one contiguous window of the input, copied as float4s by one
+// warp, 128 CTAs (concat_kernel).  p9 (P2, HIGHEST) runs in full FP32 FMA
+// (2.0 us at 67 TFLOP/s).
+//
+// Precision: p1 and p2 round their operands to TF32 (cvt.rna: nearest, ties
+// away from zero) and sum in f32 on the tensor cores, the card's counterpart
+// of the TPU's default product precision.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,9 +50,6 @@ constexpr int kThreads = 256;
 
 // -- dots: C[M, N] = sum_k A(m, k) B(k, n), A(m, k) at a[m*sam + k*sak],
 // B(k, n) at b[k*sbk + n*sbn] --------------------------------------------------
-constexpr int kDM = 64, kDN = 64, kDK = 32, kDThreads = 128;
-constexpr int kAS = kDK + 4;  // padded shared row strides (bank spread)
-constexpr int kBS = kDN + 8;
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -44,80 +57,280 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// d += a (16x8, row) * b (8x8, col): tf32 operands, f32 sums
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the mbarrier and the 1-D bulk copy (cp.async.bulk) that completes on it
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// order this thread's shared-memory stores before the async proxy's reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// the [kDM, kDK] slice of A and the [kDK, kDN] slice of B into shared memory,
-// the contiguous axis fastest so that the reads coalesce
-__device__ __forceinline__ void stage_dot(float* as, float* bs, const float* __restrict__ a,
-                                          const float* __restrict__ b, int m0, int n0, int k0,
-                                          long sam, long sak, long sbk, long sbn) {
-  for (int i = threadIdx.x; i < kDM * kDK; i += kDThreads) {
-    int m, k;
-    if (sam == 1) { m = i % kDM; k = i / kDM; } else { k = i % kDK; m = i / kDK; }
-    as[m * kAS + k] = a[(m0 + m) * sam + (k0 + k) * sak];
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {  // every committed group of products is done
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep a register live and unmoved across this point (an async product reads it)
+__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
+
+// B descriptor: K-major, no swizzle; start, leading (K) and stride (N) byte offsets
+__device__ __forceinline__ uint64_t b_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d[16] += A (64 x 8 tf32, registers: this warp's 16 rows) * B (8 x 32 tf32, shared)
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// p1, p2: the TF32 dot on wgmma.  A CTA owns a kWM x kWN tile of C (one
+// warpgroup, 128 threads) and holds all of its K in shared memory: 128 CTAs,
+// one an SM, at the probes' shapes.  Every copy is issued before the first
+// wait, B's before A's, by all the CTA's threads: a K-major row (K floats) by
+// one 1-D bulk copy completing on an mbarrier (B's rows on one, A's on the
+// other); an MN-major operand by 16-byte cp.async (B's in one commit group,
+// A's in the next), because its k-rows are 128- and 256-byte pieces and each
+// bulk copy holds its issuing thread ~20 cycles however small it is.  The
+// landing rows are padded so that the passes below read shared memory
+// without bank conflicts: K-major rows at K + 4 floats (A's at padded_k + 4),
+// A's k-rows at kWM + 8; B's k-rows need none (a warp reads one k-row at a
+// time).  What bounds the kernel is this landing: 96 KB a CTA, 12 MB for the
+// card, at the L2's rate (~24 bytes a cycle an SM, by either copy path).
+//
+// B goes to wgmma from shared memory, and TF32 takes only K-major operands
+// there, so one pass rounds each B element once (cvt.rna) and stores it in
+// the no-swizzle core-matrix order bc[(k / 4) * 128 + n * 4 + k % 4]: a core
+// matrix is 8 n x 16 bytes of k, 512 bytes lie between the two K halves of a
+// k8 step (leading offset) and 128 between 8-column groups (stride offset).
+// A goes from registers: each thread reads its own fragment elements (rows g
+// and g + 8 of its warp's 16, columns t and t + 4 of each k8 step) from the
+// landing rows and rounds them on the way, so each A element is read and
+// rounded once and A needs no second pass through shared memory.  The k8
+// steps go in chunks of kWSteps, one commit group and one wait each (K = 256:
+// two chunks).  Nothing but the products stands between a chunk's fence and
+// its commit: no branch, no select, no load into a register a product reads
+// (ptxas then fences and serialises every wgmma of the kernel).  So K is
+// padded with zeros to whole chunks, in A's landing rows and in B's core
+// rows, and a chunk's fragments load only after the last chunk's wait.
+constexpr int kWM = 64, kWN = 32, kWThreads = 128, kWSteps = 16;
+constexpr int kAMStride = kWM + 8;  // A landed M-major: a k-row of 64 floats, padded
+
+// K rounded up to whole chunks: A's landing rows and B's core-order rows
+// hold zeros past K
+__host__ __device__ __forceinline__ int padded_k(int K) {
+  return (K + 8 * kWSteps - 1) / (8 * kWSteps) * (8 * kWSteps);
+}
+
+// Dynamic shared bytes: B in core order (padded_k(K) * kWN floats), A's
+// landing rows (to padded_k(K)) and B's, two mbarriers.  ops/kernels/probes.py
+// (dot_plan) computes the same.
+size_t wgmma_dot_smem(int K, bool a_k, bool b_k) {
+  const size_t kp = padded_k(K);
+  const size_t a = a_k ? (size_t)kWM * (kp + 4) : kp * kAMStride;
+  const size_t b = b_k ? (size_t)kWN * (K + 4) : (size_t)K * kWN;
+  return 4 * (kp * kWN + a + b) + 16;
+}
+
+__device__ __forceinline__ void cp_async16_cg(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>  // wait until at most N of this thread's cp.async groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One chunk of kWSteps k8 steps from k0: once the last chunk's products are
+// done, this thread's A fragments into af, then the products, one commit
+// group.  No select and no branch touches an input of the products (past K
+// the landing rows hold zeros, and step j's B descriptor is the chunk's plus
+// j * 1 KB): ptxas serialises every wgmma of a kernel where one does.
+template <bool kAK>
+__device__ __forceinline__ void dot_chunk(float* acc, uint32_t (&af)[kWSteps][4], const float* al,
+                                          int as, const float* bc, int k0, int r0, int t) {
+  wg_wait0();
+#pragma unroll
+  for (int j = 0; j < kWSteps; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pin(af[j][e]);
+  auto a_at = [&](int r, int k) { return kAK ? al[(size_t)r * as + k] : al[(size_t)k * as + r]; };
+#pragma unroll
+  for (int j = 0; j < kWSteps; ++j) {
+    const int k = k0 + 8 * j + t;
+    af[j][0] = to_tf32(a_at(r0, k));
+    af[j][1] = to_tf32(a_at(r0 + 8, k));
+    af[j][2] = to_tf32(a_at(r0, k + 4));
+    af[j][3] = to_tf32(a_at(r0 + 8, k + 4));
   }
-  for (int i = threadIdx.x; i < kDK * kDN; i += kDThreads) {
-    int k, n;
-    if (sbn == 1) { n = i % kDN; k = i / kDN; } else { k = i % kDK; n = i / kDK; }
-    bs[k * kBS + n] = b[(k0 + k) * sbk + (n0 + n) * sbn];
+  const uint64_t desc = b_desc(bc + (size_t)k0 * kWN, 512, 128);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < kWSteps; ++j) wgmma_tf32_n32(acc, af[j], desc + 64 * j);
+  wg_commit();
+}
+
+// kAK: A(m, k) at a[m*lda + k] (rows along K), else a[k*lda + m]; kBK: B(k, n)
+// at b[n*ldb + k], else b[k*ldb + n].
+template <bool kAK, bool kBK>
+__global__ void __launch_bounds__(kWThreads, 1)
+dot_wgmma_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      float* __restrict__ c, int N, int K, long lda, long ldb) {
+  extern __shared__ __align__(1024) unsigned char wsm[];
+  const int kp = padded_k(K);
+  float* bc = reinterpret_cast<float*>(wsm);  // B rounded, core-matrix order
+  float* al = bc + (size_t)kp * kWN;          // A's landing rows
+  const int as = kAK ? kp + 4 : kAMStride, arows = kAK ? kWM : kp;
+  float* bl = al + (size_t)arows * as;  // B's landing rows
+  const int bs = kBK ? K + 4 : kWN, brows = kBK ? kWN : K;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bl + (size_t)brows * bs);  // B's, A's
+  const int m0 = blockIdx.x * kWM, n0 = blockIdx.y * kWN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_expect_tx(&bars[0], kBK ? kWN * K * 4 : 0);
+    mbar_expect_tx(&bars[1], kAK ? kWM * K * 4 : 0);
+  }
+  for (int i = K * kWN + tid; i < kp * kWN; i += kWThreads) bc[i] = 0.f;  // zeros past K
+  if (kAK) {
+    for (int i = tid; i < kWM * (kp - K); i += kWThreads)
+      al[(size_t)(i / (kp - K)) * as + K + i % (kp - K)] = 0.f;
+  } else {
+    for (int i = K * as + tid; i < kp * as; i += kWThreads) al[i] = 0.f;
+  }
+  __syncthreads();
+  // every copy in flight before the first wait: B's, then A's
+  if (kBK) {
+    for (int r = tid; r < kWN; r += kWThreads)
+      bulk_load(bl + (size_t)r * bs, b + (size_t)(n0 + r) * ldb, K * 4, &bars[0]);
+  } else {
+    for (int p = tid; p < K * (kWN / 4); p += kWThreads) {
+      const int r = p / (kWN / 4), q = (p % (kWN / 4)) * 4;
+      cp_async16_cg(bl + (size_t)r * bs + q, b + (size_t)r * ldb + n0 + q);
+    }
+  }
+  cp_async_commit();
+  if (kAK) {
+    for (int r = tid; r < kWM; r += kWThreads)
+      bulk_load(al + (size_t)r * as, a + (size_t)(m0 + r) * lda, K * 4, &bars[1]);
+  } else {
+    for (int p = tid; p < K * (kWM / 4); p += kWThreads) {
+      const int r = p / (kWM / 4), q = (p % (kWM / 4)) * 4;
+      cp_async16_cg(al + (size_t)r * as + q, a + (size_t)r * lda + m0 + q);
+    }
+  }
+  cp_async_commit();
+
+  // B, as soon as it has landed: lane n stores four consecutive k as 16
+  // bytes; a warp takes every fourth k/4 group, four at a time
+  mbar_wait(&bars[0], 0);
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int kc0 = warp; kc0 < K / 4; kc0 += 16) {
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int kc = kc0 + 4 * u;
+      if (kc < K / 4) {
+        if (kBK) {
+          v[u] = *reinterpret_cast<const float4*>(bl + (size_t)lane * bs + 4 * kc);
+        } else {
+          const float* p = bl + (size_t)(4 * kc) * kWN + lane;
+          v[u] = make_float4(p[0], p[kWN], p[2 * kWN], p[3 * kWN]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int kc = kc0 + 4 * u;
+      if (kc < K / 4)
+        *reinterpret_cast<uint4*>(bc + kc * 128 + lane * 4) =
+            make_uint4(to_tf32(v[u].x), to_tf32(v[u].y), to_tf32(v[u].z), to_tf32(v[u].w));
+    }
+  }
+  fence_proxy_async();
+  mbar_wait(&bars[1], 0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16 + g;
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  uint32_t af[kWSteps][4];
+  for (int k0 = 0; k0 < K; k0 += 8 * kWSteps) dot_chunk<kAK>(acc, af, al, as, bc, k0, r0, t);
+  wg_wait0();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pin(acc[i]);
+#pragma unroll
+  for (int j = 0; j < kWSteps; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pin(af[j][e]);
+  // acc[4i + 2h + e] is C(r0 + 8h, 8i + 2t + e) of the tile
+#pragma unroll
+  for (int i = 0; i < kWN / 8; ++i) {
+    float* row = c + (size_t)(m0 + r0) * N + n0 + 8 * i + 2 * t;
+    *reinterpret_cast<float2*>(row) = make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(row + (size_t)8 * N) = make_float2(acc[4 * i + 2], acc[4 * i + 3]);
   }
 }
 
-// p1, p2: a 64 x 64 output tile a block, four warps of 32 x 32, each warp
-// 2 x 4 mma tiles of 16 x 8
-__global__ void __launch_bounds__(kDThreads)
-dot_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
-                int N, int K, long sam, long sak, long sbk, long sbn) {
-  __shared__ float as[kDM * kAS];
-  __shared__ float bs[kDK * kBS];
-  const int m0 = blockIdx.x * kDM, n0 = blockIdx.y * kDN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp % 2) * 32, wn = (warp / 2) * 32;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[2][4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kDK) {
-    __syncthreads();
-    stage_dot(as, bs, a, b, m0, n0, k0, sam, sak, sbk, sbn);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kDK; ks += 8) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* r0 = as + (wm + mt * 16 + g) * kAS + ks + t;
-        af[mt][0] = to_tf32(r0[0]);
-        af[mt][1] = to_tf32(r0[8 * kAS]);
-        af[mt][2] = to_tf32(r0[4]);
-        af[mt][3] = to_tf32(r0[8 * kAS + 4]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* c0 = bs + (ks + t) * kBS + wn + nt * 8 + g;
-        bf[nt][0] = to_tf32(c0[0]);
-        bf[nt][1] = to_tf32(c0[4 * kBS]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], af[mt], bf[nt]);
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = m0 + wm + mt * 16 + g, col = n0 + wn + nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(c + (long)row * N + col) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(c + (long)(row + 8) * N + col) =
-          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
+template <bool kAK, bool kBK>
+cudaError_t launch_wgmma_tf32(dim3 grid, size_t smem, cudaStream_t st, const float* a,
+                              const float* b, float* c, int N, int K, long lda, long ldb) {
+  cudaError_t err = cudaFuncSetAttribute(dot_wgmma_tf32_kernel<kAK, kBK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dot_wgmma_tf32_kernel<kAK, kBK><<<grid, kWThreads, smem, st>>>(a, b, c, N, K, lda, ldb);
+  return cudaGetLastError();
 }
 
 // p9: the same product in full FP32 FMA.  A block owns a 32 x 64 output tile
@@ -338,22 +551,23 @@ window_sum_kernel(const float* __restrict__ x, float* __restrict__ out, int T, i
   }
 }
 
-// -- p7: out[t, k*C + c] = x[t + k, c] (x [To + KS - 1, C] -> [To, KS*C]); a
-// block a tile of kCR output rows, the kCR + KS - 1 input rows it reads staged
-constexpr int kCR = 32;
-__global__ void __launch_bounds__(kThreads)
-concat_kernel(const float* __restrict__ x, float* __restrict__ out, int To, int C, int KS) {
-  extern __shared__ float tile[];
-  const int t0 = blockIdx.x * kCR;
-  const int rows = min(kCR, To - t0) + KS - 1;
-  for (int i = threadIdx.x; i < rows * C; i += kThreads) tile[i] = x[(long)t0 * C + i];
-  __syncthreads();
-  const int wide = KS * C;
-  for (int i = threadIdx.x; i < min(kCR, To - t0) * wide; i += kThreads) {
-    const int r = i / wide, j = i % wide;
-    const int k = j / C, c = j % C;
-    out[(long)(t0 + r) * wide + j] = tile[(r + k) * C + c];
-  }
+// -- p7: out[t, k*C + c] = x[t + k, c] (x [To + KS - 1, C] -> [To, KS*C]).
+// Output row t is the contiguous window x[t*C : (t + KS)*C], so the copy is
+// out[t*W + j] = x[t*C + j] (W = KS*C): no index arithmetic beyond the row's
+// base.  A warp a row, kCWarps rows a CTA (128 CTAs for the probe's To = 512);
+// V is float4 where C % 4 == 0 and both bases are 16-byte aligned (the
+// probe's C = 12: 45 float4s a row), else float; cv, wv are C and W in V's.
+// x (25 KB for the probe) is read from device memory directly: each row is
+// read by KS neighbouring warps, which find it in L1 or L2.
+constexpr int kCWarps = 4;
+template <typename V>
+__global__ void __launch_bounds__(kCWarps * 32)
+concat_kernel(const V* __restrict__ x, V* __restrict__ out, int To, int cv, int wv) {
+  const int t = blockIdx.x * kCWarps + (threadIdx.x >> 5);
+  if (t >= To) return;
+  const V* src = x + (size_t)t * cv;
+  V* dst = out + (size_t)t * wv;
+  for (int j = threadIdx.x & 31; j < wv; j += 32) dst[j] = src[j];
 }
 
 // -- p8: out = x^T through a 32 x 33 shared tile (x [R, W] -> [W, R]) ---------------
@@ -393,24 +607,35 @@ cudaError_t with_smem(const void* kernel, size_t bytes) {
 
 extern "C" {
 
-// p1, p2 (tf32 = 1, tensor cores) and p9 (tf32 = 0, FP32 FMA): c [M, N] =
-// A @ B with A(m, k) at a[m*sam + k*sak] and B(k, n) at b[k*sbk + n*sbn].
-// M % 64 == 0, N % 64 == 0, K % 32 == 0.
+// p1, p2 (tf32 = 1, wgmma) and p9 (tf32 = 0, FP32 FMA): c [M, N] = A @ B
+// with A(m, k) at a[m*sam + k*sak] and B(k, n) at b[k*sbk + n*sbn].
+// tf32: the launch plan of ops/kernels/probes.py (dot_plan): grid_m = M / 64,
+// grid_n = N / 32, smem its dynamic shared bytes (<= 232448); K % 8 == 0, each
+// operand contiguous along K or along M / N with a row stride % 4 == 0 and a
+// 16-byte aligned base.  fp32: M % 64 == 0, N % 64 == 0, K % 32 == 0 (the plan
+// arguments are not read).
 int ptbxl_probe_dot(int device, const void* a, const void* b, void* c, int M, int N, int K,
                     long long sam, long long sak, long long sbk, long long sbn, int tf32,
-                    void* stream) {
+                    int grid_m, int grid_n, long long smem, void* stream) {
   cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (M <= 0 || N <= 0 || K <= 0 || M % kDM || N % kDN || K % kDK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(M / kDM, N / kDN);
   const float* as = static_cast<const float*>(a);
   const float* bs = static_cast<const float*>(b);
   float* cs = static_cast<float*>(c);
   if (tf32) {
-    dot_tf32_kernel<<<grid, kDThreads, 0, st>>>(as, bs, cs, N, K, sam, sak, sbk, sbn);
-    return (int)cudaGetLastError();
+    const bool a_k = sak == 1, b_k = sbk == 1;
+    const long long lda = a_k ? sam : sak, ldb = b_k ? sbn : sbk;
+    if (M <= 0 || N <= 0 || K <= 0 || M % kWM || N % kWN || K % 8 || (!a_k && sam != 1) ||
+        (!b_k && sbn != 1) || lda % 4 || ldb % 4 || ((uintptr_t)a | (uintptr_t)b) % 16 ||
+        grid_m != M / kWM || grid_n != N / kWN || smem > 232448 ||
+        (size_t)smem != wgmma_dot_smem(K, a_k, b_k))
+      return (int)cudaErrorInvalidValue;
+    auto launch = a_k ? (b_k ? launch_wgmma_tf32<true, true> : launch_wgmma_tf32<true, false>)
+                      : (b_k ? launch_wgmma_tf32<false, true> : launch_wgmma_tf32<false, false>);
+    return (int)launch(dim3(grid_m, grid_n), smem, st, as, bs, cs, N, K, lda, ldb);
   }
+  if (M <= 0 || N <= 0 || K <= 0 || M % 64 || N % 64 || K % 32) return (int)cudaErrorInvalidValue;
   // cp.async needs 16-byte rows: the contiguous axis along the tile, 4-aligned strides
   const bool am = sam == 1 && sak % 4 == 0, bn = sbn == 1 && sbk % 4 == 0;
   const dim3 fgrid(M / kFM, N / kFN);
@@ -502,10 +727,14 @@ int ptbxl_probe_concat(int device, const void* x, void* out, int To, int C, int 
   cudaError_t err = ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (To <= 0 || C <= 0 || KS <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kCR + KS - 1) * C * 4;
-  if ((err = with_smem((const void*)concat_kernel, smem)) != cudaSuccess) return (int)err;
-  concat_kernel<<<(To + kCR - 1) / kCR, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), To, C, KS);
+  const int grid = (To + kCWarps - 1) / kCWarps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C % 4 == 0 && ((uintptr_t)x | (uintptr_t)out) % 16 == 0)
+    concat_kernel<float4><<<grid, kCWarps * 32, 0, st>>>(
+        static_cast<const float4*>(x), static_cast<float4*>(out), To, C / 4, KS * C / 4);
+  else
+    concat_kernel<float><<<grid, kCWarps * 32, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), To, C, KS * C);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,15 @@
 P1 replaces ``tools/probe_mosaic.py::_call`` (:44) with its probes p1-p8
 (:54-175), P2 ``tools/probe_mosaic2.py::_call`` (:35) with p3b, p5b, p5b2,
 p5c and p9 (:45-116).  Kernels: ``ptbxl_torch/csrc/probes.cu``, one small
-kernel per operation; the source says what bounds them (bytes and the
-launch: each moves at most ~3 MB).
+kernel per operation; the source says what bounds each.  The data-movement
+probes move at most ~3 MB and are bound by the launch.  p1 (TN, :54) and p2
+(NT, :71), TF32 dots of 134 MFLOP, are bound by each CTA's first read of its
+operands (96 KB a CTA out of L2): their kernel gives each CTA a 64 x 32 tile
+of the output with all of K resident (128 CTAs at the probes' shapes, one an
+SM), issues every operand copy before it waits, rounds each element once
+(``cvt.rna``) on its way to ``wgmma`` and runs the k8 steps in chunks of 16,
+each one commit group; ``dot_plan`` is its launch plan.  p7 (:153) copies
+each output row, one contiguous window of the input, in float4s.
 
 Operations (f32 throughout):
 
@@ -13,7 +20,9 @@ Operations (f32 throughout):
   ``precision="tf32"`` runs on the tensor cores with operands rounded to TF32
   (``cvt.rna``: nearest, ties away from zero) and f32 sums, the card's
   counterpart of the TPU's default product precision; ``"fp32"`` (p9,
-  HIGHEST) is full FP32 FMA.  M and N multiples of 64, K of 32.
+  HIGHEST) is full FP32 FMA.  TF32: the rules of ``dot_plan`` (M % 64, N %
+  32, K % 8, both operands' slices in shared memory) and 16-byte aligned
+  operands; FP32: M and N multiples of 64, K of 32.
 * ``roll_add(x, lane_shift, sublane_shift)``: ``roll(x, lane_shift, 1) +
   roll(x, sublane_shift, 0)`` (p3, p3b).
 * ``subblock_rolls(x, ks)``: block k of ``[ks*C, T]`` is ``roll(x, -k, 1)`` (p4).
@@ -40,7 +49,7 @@ device only when it differs.  ``tools/probe_dispatch.py`` times the parts.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -52,8 +61,8 @@ PRECISIONS = ("tf32", "fp32")
 
 _I, _P, _L = _build.INT, _build.VOIDP, ctypes.c_longlong
 _SIGNATURES = {
-    # device, a, b, c, M, N, K, sam, sak, sbk, sbn, tf32, stream
-    "ptbxl_probe_dot": [_I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+    # device, a, b, c, M, N, K, sam, sak, sbk, sbn, tf32, grid_m, grid_n, smem, stream
+    "ptbxl_probe_dot": [_I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _L, _P],
     # device, x, out, C, T, lane shift, sublane shift, stream
     "ptbxl_probe_roll_add": [_I, _P, _P, _I, _I, _I, _I, _P],
     # device, x, out, C, T, KS, stream
@@ -144,11 +153,67 @@ def nt_dot_plain(a: torch.Tensor, b: torch.Tensor, precision: str = "tf32") -> t
     return _dot_plain(a, b.t(), precision)
 
 
+# the TF32 dot's tile (one warpgroup's wgmma M, and N), the K of one commit
+# group of its products (16 k8 steps; K is padded with zeros to it), and the
+# card's shared memory a CTA (H100: 227 KB)
+TF32_TILE_M, TF32_TILE_N, TF32_CHUNK_K = 64, 32, 128
+SMEM_MAX = 232_448
+
+
+class DotPlan(NamedTuple):
+    """Launch plan of the TF32 dot: a ``tile`` of C a CTA with all of K
+    resident, ``grid`` CTAs (M / 64, N / 32), and ``smem_bytes`` of dynamic
+    shared memory a CTA (B in ``wgmma``'s core-matrix order and A's landing
+    rows, their K padded with zeros to a multiple of 128; B's landing rows;
+    two mbarriers; ``csrc/probes.cu``'s ``wgmma_dot_smem`` is the same
+    sum)."""
+
+    tile: Tuple[int, int]
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def dot_plan(m: int, n: int, k: int, a_kmajor: bool, b_kmajor: bool) -> DotPlan:
+    """The TF32 dot's plan for C [m, n] = A [m, k] @ B [k, n], A's rows
+    contiguous along K (``a_kmajor``: p2) or along M (p1), B's along K
+    (``b_kmajor``: p2) or along N (p1).  Raises ``ValueError`` naming the rule
+    a shape breaks: m % 64, n % 32, k % 8, or both slices too large for one
+    CTA's shared memory."""
+    tm, tn = TF32_TILE_M, TF32_TILE_N
+    if m <= 0 or n <= 0 or k <= 0:
+        raise ValueError(f"TF32 dot: empty shape M={m}, N={n}, K={k}")
+    if m % tm:
+        raise ValueError(f"TF32 dot: M % {tm} == 0 (one wgmma M a CTA), got M={m}")
+    if n % tn:
+        raise ValueError(f"TF32 dot: N % {tn} == 0 (the CTA's N), got N={n}")
+    if k % 8:
+        raise ValueError(f"TF32 dot: K % 8 == 0 (wgmma's TF32 k-step), got K={k}")
+    k_pad = -(-k // TF32_CHUNK_K) * TF32_CHUNK_K
+    a_land = tm * (k_pad + 4) if a_kmajor else k_pad * (tm + 8)
+    b_land = tn * (k + 4) if b_kmajor else k * tn
+    smem = 4 * (k_pad * tn + a_land + b_land) + 16
+    if smem > SMEM_MAX:
+        raise ValueError(f"TF32 dot: K={k} needs {smem} bytes of shared memory a CTA "
+                         f"(both slices resident), more than {SMEM_MAX}")
+    return DotPlan((tm, tn), (m // tm, n // tn), smem)
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int, strides, precision: str):
     _check_precision(precision)
-    if m % 64 or n % 64 or k % 32:
-        raise ValueError(f"probe dot needs M, N % 64 == 0 and K % 32 == 0, got {m}, {n}, {k}")
-    return _launch("ptbxl_probe_dot", (m, n), (a, b), (m, n, k, *strides, int(precision == "tf32")))
+    if precision == "fp32":
+        if m % 64 or n % 64 or k % 32:
+            raise ValueError(f"probe dot needs M, N % 64 == 0 and K % 32 == 0, got {m}, {n}, {k}")
+        return _launch("ptbxl_probe_dot", (m, n), (a, b), (m, n, k, *strides, 0, 0, 0, 0))
+    sam, sak, sbk, sbn = strides
+    plan = dot_plan(m, n, k, sak == 1, sbk == 1)
+    if (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("TF32 dot: operands must start on 16-byte boundaries (16-byte copies)")
+    return _launch("ptbxl_probe_dot", (m, n), (a, b),
+                   (m, n, k, *strides, 1, *plan.grid, plan.smem_bytes))
 
 
 def tn_dot(a: torch.Tensor, b: torch.Tensor, precision: str = "tf32") -> torch.Tensor:
@@ -263,7 +328,9 @@ def shifted_concat_plain(x: torch.Tensor, ks: int = 15) -> torch.Tensor:
 
 def shifted_concat(x: torch.Tensor, ks: int = 15) -> torch.Tensor:
     """p7: x [T+ks-1, C] -> [T, ks*C], column block k = ``x[k:k+T]`` (an
-    unaligned concat at multiples of C)."""
+    unaligned concat at multiples of C).  Row t is the window ``x[t:t+ks]``
+    flattened: float4 copies where C % 4 == 0 and x starts on a 16-byte
+    boundary, 4-byte copies otherwise."""
     if x.device.type == "cpu":
         return shifted_concat_plain(x, ks)
     rows, c = x.shape

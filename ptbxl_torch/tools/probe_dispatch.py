@@ -14,6 +14,9 @@ For every probe of P1's and P2's tables (``probe_mosaic.PROBES``,
 * ``host_us``: the host's own time a call (``time.perf_counter_ns`` over
   ``reps`` calls without a synchronise, after a warm-up).
 
+Beside them, each probe's bound (``probe_mosaic.bound``: bytes or operations
+at the H100's published rates) and its plain version's loop ms.
+
 Then the kernel wrapper's host work split into its parts on one probe
 (p5b, one input and one output), each timed alone over ``reps`` calls:
 ``checks`` (splitting the arguments into tensors and ints and checking each
@@ -114,6 +117,10 @@ def probe_rows(iters: int, reps: int) -> list:
                                      "host_us": host_us(fn, reps)}
                     finally:
                         torch.backends.cuda.matmul.allow_tf32 = saved
+                outs = p.kernel(*xs)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                row["bound"] = probe_mosaic.bound(p, xs, outs)
+                row["plain_ms"] = clock.ms(lambda: p.plain(*xs), max(1, iters // 4))
             rows.append(row)
     return rows
 

@@ -14,7 +14,9 @@ data movement, the summation-order bound for sums and dots (``tol``).  With
 measurement).
 
 ``PROBES`` is P1's table (p1-p8); ``tools/probe_mosaic2.py`` (P2) reuses
-``run_probe`` and ``main``.
+``run_probe`` and ``main``.  ``gate_cases`` holds P1's TF32 dot and p7
+against their plain versions beyond the probes' shapes (``chip_smoke.py``
+runs it on the card).
 """
 
 from __future__ import annotations
@@ -152,6 +154,15 @@ def bytes_moved(xs, outs) -> int:
     return sum(v.numel() * v.element_size() for v in list(xs) + list(outs))
 
 
+def bound(p: Probe, xs, outs) -> Tuple[float, str]:
+    """The least ms the card could take: the larger of the bytes (each input
+    read once, each output written once) at the memory rate and the
+    operations at the peak rate of their type, and which of the two it is."""
+    t_bytes = bytes_moved(xs, outs) / PEAK_BYTES * 1e3
+    t_ops = p.flops(*xs) / p.peak * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
 def run_probe(p: Probe, device: torch.device, iters: int = 20, clock: Optional[Clock] = None
               ) -> dict:
     """One probe: outputs, errors, gate and times (ms a call) on ``device``."""
@@ -167,10 +178,7 @@ def run_probe(p: Probe, device: torch.device, iters: int = 20, clock: Optional[C
     row = {"probe": p.name, "label": p.label, "err": err64, "max_abs_err": gate_err,
            "tol": tol, "tol_note": p.tol_note, "ok": shapes_ok and gate_err <= tol,
            "shapes": [list(g.shape) for g in got]}
-    nbytes = bytes_moved(xs, got)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = p.flops(*xs) / p.peak * 1e3
-    row["bound"] = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+    row["bound"] = bound(p, xs, got)
     with torch.no_grad():
         row["ms"] = clock.ms(lambda: p.kernel(*xs), iters)
         row["graph_ms"] = graph_ms(lambda: p.kernel(*xs), iters, device)
@@ -184,6 +192,84 @@ def run_probe(p: Probe, device: torch.device, iters: int = 20, clock: Optional[C
             torch.backends.cuda.matmul.allow_tf32 = saved
     row["library"] = p.library_name
     return row
+
+
+# P1's gate cases beyond the probes' own shapes.  The TF32 dot (p1's TN and
+# p2's NT form) at M, N, K: the probes' shape, the smallest that ``dot_plan``
+# admits, several tiles in M and N with K != 256 (two chunks of k8 steps, the
+# second mostly past K), and K = 384, the largest that shared memory holds.
+DOT_GATE_SHAPES = ((2048, 128, 256), (64, 32, 8), (192, 96, 136), (128, 64, 384))
+# p7 at (To, C, offset of x from an aligned base in floats): the probe's
+# float4 path, C = 5 on the 4-byte path, an odd To on both, a misaligned view
+CONCAT_GATE_CASES = ((512, 12, 0), (512, 5, 0), (37, 12, 0), (37, 5, 0), (37, 12, 1))
+# values at the edges of TF32 rounding (cvt.rna: nearest, ties away from
+# zero): exact ties and negative ties, ties and all-ones tails that carry into
+# the exponent, signed zeros, subnormals, and one below a tie
+TF32_EDGE_VALUES = (1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                    -(1.0 + 3 * 2.0 ** -11), 2.0 - 2.0 ** -11, 2.0 - 2.0 ** -23,
+                    -(2.0 - 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -23, 0.0, -0.0,
+                    2.0 ** -130, 3.0e-40, -(2.0 ** -136 + 2.0 ** -137), 2.0 ** -149)
+
+
+def _abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+def _dot_case(form: str, m: int, n: int, k: int, device: torch.device):
+    """(kernel, plain, tol, plan) of one TF32 dot case on normal inputs."""
+    if form == "tn":
+        a, b = normal((k, m), 3, device), normal((k, n), 4, device)
+        return (kp.tn_dot(a, b), kp.tn_dot_plain(a, b), dot_tol(a, b),
+                kp.dot_plan(m, n, k, False, False))
+    a, b = normal((m, k), 3, device), normal((n, k), 4, device)
+    return (kp.nt_dot(a, b), kp.nt_dot_plain(a, b), dot_tol(a.t(), b.t()),
+            kp.dot_plan(m, n, k, True, True))
+
+
+def rounding_inputs(form: str, device: torch.device):
+    """A [64, 8] (or its TN transpose) whose first entries are
+    ``TF32_EDGE_VALUES`` and the rest normals, and B one-hot on k = n % 8
+    ([8, 32] or [32, 8]): C(m, n) = tf32(A(m, n % 8)) exactly, every other
+    product being 0."""
+    a = normal((64, 8), 5, device)
+    edges = torch.tensor(TF32_EDGE_VALUES, dtype=torch.float32, device=device)
+    a.view(-1)[:len(edges)] = edges
+    onehot = (torch.arange(8, device=device)[:, None]
+              == torch.arange(32, device=device)[None, :] % 8).float()  # [8, 32]
+    return (a.t().contiguous(), onehot) if form == "tn" else (a, onehot.t().contiguous())
+
+
+def gate_cases(device: torch.device) -> dict:
+    """Every case of P1's extra gates on ``device``: name -> ``max_abs_err``,
+    ``tol``, ``ok`` (and the dots' CTAs, p7's path).  Dots within
+    ``dot_tol`` of their plain versions; the TF32 rounding equal to
+    ``tf32_round`` (C = A @ one-hot picks each rounded element); p7 equal
+    to its plain version."""
+    out = {}
+    for m, n, k in DOT_GATE_SHAPES:
+        for form in ("tn", "nt"):
+            got, want, tol, plan = _dot_case(form, m, n, k, device)
+            err = _abs_err(got, want)
+            out[f"{form} M={m} N={n} K={k}"] = {
+                "max_abs_err": err, "tol": tol, "ctas": plan.ctas,
+                "ok": got.shape == want.shape and err <= tol}
+    for form in ("tn", "nt"):
+        a, b = rounding_inputs(form, device)
+        got = kp.tn_dot(a, b) if form == "tn" else kp.nt_dot(a, b)
+        a_mk = a.t() if form == "tn" else a
+        want = kp.tf32_round(a_mk)[:, torch.arange(32, device=device) % 8]
+        out[f"{form} tf32 rounding"] = {"max_abs_err": _abs_err(got, want), "tol": 0.0,
+                                        "ok": bool(torch.equal(got, want))}
+    for to, c, offset in CONCAT_GATE_CASES:
+        flat = normal(((to + 14) * c + offset,), 6, device)
+        x = flat[offset:].view(to + 14, c)
+        got, want = kp.shifted_concat(x), kp.shifted_concat_plain(x)
+        err = _abs_err(got, want)
+        path = "float4" if c % 4 == 0 and x.data_ptr() % 16 == 0 else "4-byte"
+        out[f"p7 To={to} C={c} offset={offset}"] = {
+            "max_abs_err": err, "tol": 0.0, "path": path,
+            "ok": got.shape == want.shape and err == 0.0}
+    return out
 
 
 def line(row: dict, cuda: bool) -> str:
