@@ -21,10 +21,12 @@ the main paths (``Predictor`` on the baseline and AF checkpoints, then on the
 multimodal checkpoint with demo vectors, Grad-CAM and demo importance on both,
 then ``train`` on the baseline ECGCNN at full width with a reload of its best
 checkpoint, then the port bench's hybrid row and the tool probes' functions at
-their shapes, then the PTB-XL data layer, CLIs 03-08 and 12 and the bench's
-pipeline rows on a synthetic PTB-XL tree of [12, 5000] records made under
-``build/``), checks them against the golden outputs, the demo-pack parity gate,
-the JAX scripts' CSV schemas and ``Predictor``, and times the kernels, the
+their shapes, then the PTB-XL data layer, CLIs 03-08 and 12, the eval path after
+them (09, 10, 14-17, 00's pack and exports, 02, printsize, Grad-CAM CLIs 11 and
+13, the demo CLI) and the bench's pipeline rows on a synthetic PTB-XL tree of
+[12, 5000] records made under ``build/``), checks them against the golden
+outputs, the demo-pack parity gate, the JAX scripts' CSV schemas, ``Predictor``,
+``GradCAM``, ``compute_metrics`` and ``per_class_scores``, and times the kernels, the
 train step and the epoch beside their plain versions, the framework (cuDNN,
 torch's own pool backward) path and their bounds.  The launch counters are set
 to 0 just before each main path and read just after it.  Each phase prints one
@@ -1255,6 +1257,257 @@ def phase_cli_eval(root: str, work: str) -> dict:
     return out
 
 
+def _printed_metrics(text: str) -> dict:
+    """{header: {metric: float}} from CLI 10's output."""
+    out, header = {}, None
+    for line in text.splitlines():
+        if line.startswith("[") and line.endswith("metrics:"):
+            header = line
+            out[header] = {}
+        elif header and line.startswith("  ") and ": " in line:
+            k, v = line.strip().split(": ")
+            out[header][k] = float(v)
+    return out
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / |want| over finite pairs; raises where nan sits apart."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if g.shape != w.shape or not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise AssertionError(f"{g} against {w}")
+    fin = ~np.isnan(w)
+    return float((np.abs(g[fin] - w[fin]) / np.maximum(np.abs(w[fin]), 1e-300)).max(initial=0.0))
+
+
+def phase_cli_analysis(root: str, work: str) -> dict:
+    """The eval path after CLIs 06-08, on their CSVs in ``work`` and the tree:
+    09 (every merged cell its input's text), 10 (its printed metrics against
+    ``compute_metrics`` of the merged columns, alphabetical), 14-17
+    (``metrics_summary.csv`` against ``per_class_scores``; the figures written
+    or skipped), 00 make_demo_pack (indices against ``pick_demo_indices``,
+    ``meta.csv``, each ``.npz`` array bit for bit the dataset's item) and the
+    raw exports, 02 and printsize (against the CSV and the datasets), then 11,
+    13 and the demo CLI (on the bundled record and on one of the new pack) with
+    K6's launches counted from 0 over those four runs: 11's and 13's CAMs
+    against ``GradCAM`` with their settings (2e-3), the demo's probabilities
+    against ``Predictor`` framework ``highest`` without a second z-score
+    (2e-5).  Each CLI's wall seconds and 11's and 13's CAM call timed on the
+    card (CUDA events)."""
+    import collections
+    import importlib.util
+
+    from ptbxl_torch import demo_inference
+    from ptbxl_torch.analysis.figures import LABELS_DEFAULT, per_class_scores
+    from ptbxl_torch.cli import (analyse_merged_test, grad_cam_af, grad_cam_ecg_baseline,
+                                 make_demo_pack, merge_all_test, plot_baseline_only,
+                                 plot_distributions, plot_mm_only, plot_results, prepare_data,
+                                 printsize, save_demo_ecg, save_demo_multimodal)
+    from ptbxl_torch.data import PTBXLAFDataset, PTBXLDataset, PTBXLECGMultimodalDataset
+    from ptbxl_torch.data.demo_export import pick_demo_indices
+    from ptbxl_torch.inference import Predictor
+    from ptbxl_torch.interpret.grad_cam import GradCAM
+    from ptbxl_torch.models.factory import load_ecgcnn
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+    from ptbxl_torch.training.metrics import compute_metrics
+    from ptbxl_torch.utils.table import read_csv
+
+    wall = {}
+
+    def cli(name, main, argv):
+        t0 = time.perf_counter()
+        ret, text = _run_cli(main, argv)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return ret, text
+
+    out = {"phase": "cli_analysis", "wall_s": wall}
+    # 09 on the three CSVs of cli_eval
+    inputs = [os.path.join(work, f"{n}.csv")
+              for n in ("ecg_baseline_test", "ecg_multimodal_test", "af_binary_test")]
+    merged = os.path.join(work, "merged", "test_03_04_05_merged.csv")
+    cli("merge_all_test", merge_all_test.main, [
+        "--baseline_csv", inputs[0], "--multimodal_csv", inputs[1], "--af_csv", inputs[2],
+        "--out_csv", merged])
+    base, mm, af = (_csv_columns(p) for p in inputs)
+    want = base | {c: v for c, v in mm.items() if not c.startswith("y_true_")} | af
+    got = _csv_columns(merged)
+    if list(got) != list(want) or got != want:
+        raise AssertionError(f"09: merged columns {list(got)} != {list(want)} or a cell differs")
+    n_rows = len(got["y_true_MI"])
+    out["merge_all_test"] = {"rows": n_rows, "columns": len(got), "cells_equal": n_rows * len(got)}
+
+    # 10: its printed metrics against compute_metrics on the merged columns
+    t = read_csv(merged)
+
+    def cols(names, dtype=np.float32):
+        return np.array([t[c] for c in names], np.float64).T.astype(dtype)
+
+    _, text = cli("analyse_merged_test", analyse_merged_test.main, ["--merged_csv", merged])
+    alpha = ["CD", "HYP", "MI", "NORM", "STTC"]
+    truth = cols([f"y_true_{c}" for c in alpha])
+    want = {
+        "[Baseline ECG][TEST] metrics:": compute_metrics(
+            truth, cols([f"y_prob_{c}" for c in alpha])),
+        "[ECG + demographics][TEST] metrics:": compute_metrics(
+            truth, cols([f"y_prob_{c}_mm" for c in alpha])),
+        "[AF binary][TEST] metrics:": compute_metrics(cols(["y_true_AF"]), cols(["y_prob_AF"])),
+    }
+    printed = _printed_metrics(text)
+    if list(printed) != list(want) or any(list(printed[h]) != list(m) for h, m in want.items()):
+        raise AssertionError(f"10 printed {printed}")
+    out["analyse_merged_test"] = {"max_rel_err": gate("10 metrics", max(
+        _rel_err(list(printed[h].values()), list(m.values())) for h, m in want.items()), 1e-12),
+        "auroc_macro": {h: m["auroc_macro"] for h, m in want.items()}}
+
+    # 14-17: metrics_summary.csv against per_class_scores; figures written or skipped
+    fig_dir = os.path.join(work, "figures")
+    drawn = {}
+    for name, mod in (("plot_results", plot_results), ("plot_distributions", plot_distributions),
+                      ("plot_baseline_only", plot_baseline_only), ("plot_mm_only", plot_mm_only)):
+        ret, _ = cli(name, mod.main, ["--merged_csv", merged, "--out_dir", fig_dir])
+        drawn.update(ret)
+    summary = _csv_columns(os.path.join(fig_dir, "metrics_summary.csv"))
+    header = (["model", "auroc_macro", "auprc_macro"] + [f"auroc_{c}" for c in LABELS_DEFAULT]
+              + [f"auprc_{c}" for c in LABELS_DEFAULT])
+    if list(summary) != header or summary["model"] != ["ecg", "mm"]:
+        raise AssertionError(f"metrics_summary.csv: {summary}")
+    y64 = cols([f"y_true_{c}" for c in LABELS_DEFAULT], np.float64)
+    errs = []
+    for i, suffix in enumerate(("", "_mm")):
+        m = per_class_scores(y64, cols([f"y_prob_{c}{suffix}" for c in LABELS_DEFAULT], np.float64))
+        row = [float(summary[c][i]) if summary[c][i] else float("nan") for c in header[1:]]
+        errs.append(_rel_err(row, [m["auroc_macro"], m["auprc_macro"], *m["auroc_per_class"],
+                                   *m["auprc_per_class"]]))
+    written = sorted(f for f, ok in drawn.items() if ok)
+    if (len(drawn) != 13 or any(not os.path.exists(os.path.join(fig_dir, f)) for f in written)
+            or (written and importlib.util.find_spec("matplotlib") is None)):
+        raise AssertionError(f"14-17 figures {drawn}")
+    out["plots"] = {"metrics_summary_max_rel_err": gate("14 metrics_summary", max(errs), 1e-12),
+                    "figures_written": written,
+                    "figures_skipped": sorted(f for f, ok in drawn.items() if not ok)}
+
+    # 00: the demo pack and the raw exports, against the datasets
+    test_ds = PTBXLDataset(root, "test", CLASSES)
+    mm_ds = PTBXLECGMultimodalDataset(root, "test", CLASSES)
+    pack = os.path.join(work, "demo_pack")
+    (idx_s, idx_m, meta_path), _ = cli("make_demo_pack", make_demo_pack.main,
+                                       ["--base_dir", root, "--out_root", pack])
+    meta = _csv_columns(meta_path)
+    rows = []
+    for ds, prefix, sub, idx in ((test_ds, "single", "single", idx_s),
+                                 (mm_ds, "mm", "multimodal", idx_m)):
+        want_idx, why = pick_demo_indices(ds.y, 1, 2, 42)
+        if idx != want_idx:
+            raise AssertionError(f"00 {sub}: indices {idx} != {want_idx}")
+        for k, i in enumerate(idx):
+            item = ds[i]
+            z = np.load(os.path.join(pack, sub, f"{prefix}_sample_{k:02d}.npz"))
+            arrays = {"ecg": item[0], "y": item[-1]} | ({"demo": item[1]} if sub != "single"
+                                                         else {})
+            if sorted(z.files) != sorted([*arrays, "classes"]) or \
+                    list(z["classes"]) != CLASSES or \
+                    not all(np.array_equal(z[a], v.astype(np.float32)) for a, v in arrays.items()):
+                raise AssertionError(f"00 {sub}/{prefix}_sample_{k:02d}.npz != dataset item {i}")
+            rows.append([f"{sub}/{prefix}_sample_{k:02d}.npz", sub, str(i), why[i],
+                         ";".join(f"{c}={int(item[-1][j])}" for j, c in enumerate(CLASSES)),
+                         str(int(item[-1].sum())), str(tuple(item[0].shape)),
+                         str(tuple(item[1].shape)) if sub != "single" else ""])
+    meta_rows = [list(r) for r in zip(*meta.values())]
+    if list(meta) != ["file", "modality", "index_in_split", "chosen_for", "y_true", "y_sum",
+                      "ecg_shape", "demo_shape"] or meta_rows != rows:
+        raise AssertionError(f"00 meta.csv {meta}")
+    raw = os.path.join(work, "demo_raw")
+    cli("save_demo_ecg", save_demo_ecg.main, ["--base_dir", root, "--out_dir", raw])
+    cli("save_demo_multimodal", save_demo_multimodal.main, ["--base_dir", root, "--out_dir", raw])
+    exported = {f"demo_ecg_{i}.npy": test_ds[i][0] for i in range(3)} | {
+        "demo_mm_ecg_0.npy": mm_ds[0][0], "demo_mm_demo_0.npy": mm_ds[0][1]}
+    if sorted(os.listdir(raw)) != sorted(exported) or not all(
+            np.array_equal(np.load(os.path.join(raw, f)), v) for f, v in exported.items()):
+        raise AssertionError(f"00 save_demo_*: {sorted(os.listdir(raw))}")
+    out["demo_pack"] = {"single": idx_s, "multimodal": idx_m, "npz_files": len(rows),
+                        "raw_files": len(exported)}
+
+    # 02 and printsize against the CSV and the datasets
+    counts, _ = cli("prepare_data", prepare_data.main, ["--base_dir", root])
+    folds = collections.Counter(int(f) for f in _csv_columns(
+        os.path.join(root, "ptbxl_database.csv"))["strat_fold"])
+    if counts["rows"] != sum(folds.values()) or counts["strat_fold"] != dict(sorted(folds.items())):
+        raise AssertionError(f"02 counts {counts}")
+    sizes, _ = cli("printsize", printsize.main, ["--base_dir", root])
+    want_sizes = {kind: {s: len(cls(root, s, CLASSES)) for s in ("train", "val", "test")}
+                  for kind, cls in (("baseline", PTBXLDataset),
+                                    ("multimodal", PTBXLECGMultimodalDataset))}
+    if sizes != want_sizes:
+        raise AssertionError(f"printsize {sizes} != {want_sizes}")
+    out["prepare_data"] = {"rows": counts["rows"], "strat_fold": counts["strat_fold"]}
+    out["printsize"] = sizes
+
+    # 11, 13 and the demo CLI on the card: K6 counted from 0 over the four runs
+    af_ds = PTBXLAFDataset(root, "test")
+    idx, idx_af = min(10, len(test_ds) - 1), min(10, len(af_ds) - 1)
+    cfg = _cli_config(os.path.join(work, "cam.yaml"), root, os.path.join(work, "cam_out"), 1)
+    demo_files = {"demo_bundled": os.path.join(DEMO, "single_sample_00.npz"),
+                  "demo_pack": os.path.join(pack, "single", "single_sample_00.npz")}
+    launches = {}
+    cwd = os.getcwd()
+    os.chdir(work)  # 11 and 13 write outputs/gradcam{,_af}/ under the working directory
+    try:
+        k6.launches = 0
+        (cam11, info11, png11), _ = cli("grad_cam_ecg_baseline", grad_cam_ecg_baseline.main,
+                                        ["--config", cfg, "--ckpt", CKPT, "--index", str(idx)])
+        launches["grad_cam_ecg_baseline"] = k6.launches
+        (cam13, png13), _ = cli("grad_cam_af", grad_cam_af.main,
+                                ["--base_dir", root, "--ckpt", CKPT_AF, "--index", str(idx_af)])
+        launches["grad_cam_af"] = k6.launches - sum(launches.values())
+        demo_out = {}
+        for name, path in demo_files.items():
+            demo_out[name], _ = cli(name, lambda a: demo_inference.main(
+                demo_inference.parse_args(a)), ["--demo_path", path, "--ckpt", CKPT,
+                                                "--out_dir", os.path.join(work, name)])
+            launches[name] = k6.launches - sum(launches.values())
+        torch.cuda.synchronize()
+        cam11, info11, cam13 = (os.path.join(work, p) for p in (cam11, info11, cam13))
+    finally:
+        os.chdir(cwd)
+    if any(v != 1 for v in launches.values()):
+        raise AssertionError(f"relu_pool_bwd launches on the Grad-CAM CLIs: {launches}")
+    pngs = [png11, png13] + [p for _, p in demo_out.values()]
+    if any((p is None) == (importlib.util.find_spec("matplotlib") is not None) for p in pngs):
+        raise AssertionError(f"PNGs {pngs}")
+
+    x, _ = test_ds[idx]
+    x_af, _ = af_ds[idx_af]
+    cams = {
+        "grad_cam_ecg_baseline": (GradCAM(load_ecgcnn(CKPT, strict=False)[0],
+                                          signal_length=T_FULL, norm_first=True), x, cam11),
+        "grad_cam_af": (GradCAM(load_ecgcnn(CKPT_AF, num_labels=1, strict=True)[0],
+                                signal_length=T_FULL, norm_first=False, eps=1e-9), x_af, cam13),
+    }
+    cam_err, cam_ms = {}, {}
+    for name, (gc, rec, path) in cams.items():
+        xt = torch.from_numpy(np.ascontiguousarray(rec.T[None])).cuda()
+        _, cam = gc(xt, 0)
+        cam_err[name] = gate(f"{name} CAM vs GradCAM",
+                             float(np.abs(np.load(path) - cam[0].cpu().numpy()).max()), 2e-3)
+        cam_ms[name] = time_ms(lambda: gc(xt, 0))
+    with open(info11) as f:
+        info = f.read()
+    want_info = (f"Sample index: {idx}\nClass: MI\nClass idx: 0\nECG shape: (12, {T_FULL})\n"
+                 f"CAM shape: ({T_FULL},)\n")
+    if info != want_info:
+        raise AssertionError(f"11 info.txt: {info!r}")
+    pred = Predictor.from_checkpoint(CKPT, engine="framework", precision="highest",
+                                     normalize=False)
+    demo_err = {name: gate(f"{name} probs vs Predictor", float(np.abs(
+        demo_out[name][0] - pred(np.load(path)["ecg"][None])[0]).max()), 2e-5)
+        for name, path in demo_files.items()}
+    out["grad_cam_cli"] = {"index": idx, "index_af": idx_af, "relu_pool_bwd_launches": launches,
+                           "max_abs_err_cam": cam_err, "cam_device_ms": cam_ms,
+                           "info_txt_ok": True, "demo_max_abs_err_vs_predictor": demo_err,
+                           "pngs": pngs}
+    return out
+
+
 def phase_pipeline() -> dict:
     """The port bench's three pipeline rows at the bench's sizes (2048 records
     of [12, 5000], batch 256) on the card."""
@@ -1768,6 +2021,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         emit(phase_cli_train(tree, work, args.seed, datasets))
         emit(phase_cli_eval(tree, work))
+        analysis_info = phase_cli_analysis(tree, work)
+        emit(analysis_info)
     pipe_info = phase_pipeline()
     emit(pipe_info)
 
@@ -1821,10 +2076,12 @@ def main(argv=None) -> int:
             entry["max_abs_err_by_batch"] = k1_info["max_abs_err_by_batch"]
             entry["max_abs_err_ragged_t37"] = max(k1_info["max_abs_err_ragged_t37"].values())
         kernels.append(entry)
-    # K6: one B=64 train step's four launches; launches on the training path and
-    # on the Grad-CAM path (baseline + multimodal)
+    # K6: one B=64 train step's four launches; launches on the training path, on
+    # the Grad-CAM path (baseline + multimodal) and on CLIs 11, 13 and the demo CLI
     t32, t16 = k6_times["float32"], k6_times["bfloat16"]
-    k6_by_path = {"train": train_info["launches"]["relu_pool_bwd"], "grad_cam": launches_cam}
+    k6_by_path = {"train": train_info["launches"]["relu_pool_bwd"], "grad_cam": launches_cam,
+                  "grad_cam_cli": sum(
+                      analysis_info["grad_cam_cli"]["relu_pool_bwd_launches"].values())}
     kernels.append({
         "name": "relu_pool_bwd", "route": "cuda", "source": "ptbxl_torch/csrc/relu_pool.cu",
         "replaces": "ptbxl_tpu/ops/relu_pool.py:65",

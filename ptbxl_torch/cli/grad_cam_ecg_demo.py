@@ -24,6 +24,7 @@ import torch
 from ptbxl_torch import config as C
 from ptbxl_torch.data import PTBXLECGMultimodalDataset
 from ptbxl_torch.interpret.grad_cam import GradCAM, demo_importance
+from ptbxl_torch.interpret.plotting import draw_if_available, plot_ecg_and_demo_importance
 from ptbxl_torch.models.factory import load_multimodal
 from ptbxl_torch.utils.device import resolve_device
 from ptbxl_torch.utils.rng import set_seed
@@ -100,21 +101,15 @@ def main(argv=None):
     np.save(cam_path, cam)
     print("[INFO] Saved CAM to:", cam_path)
 
-    fig_path = os.path.join(OUT_DIR, f"sample_{idx}_{class_name}_ecg_mm.png")
-    try:
-        import matplotlib  # noqa: F401
-    except ImportError:
-        print("[INFO] matplotlib is not installed; skipped the figure", fig_path)
-        return cam_path, importance
-    from ptbxl_torch.interpret.plotting import plot_ecg_and_demo_importance
-
-    plot_ecg_and_demo_importance(
+    fig_path = draw_if_available(
+        plot_ecg_and_demo_importance,
         ecg=x_ecg, cam=cam, demo_importance=importance, demo_feature_names=DEMO_FEATURES,
         lead_idx=args.lead,
         title=f"ECG multimodal Grad-CAM | sample {idx} | class {class_name}",
-        save_path=fig_path,
+        save_path=os.path.join(OUT_DIR, f"sample_{idx}_{class_name}_ecg_mm.png"),
     )
-    print(f"[INFO] Saved Grad-CAM figure to: {fig_path}")
+    if fig_path is not None:
+        print(f"[INFO] Saved Grad-CAM figure to: {fig_path}")
     return cam_path, importance
 
 

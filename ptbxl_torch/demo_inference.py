@@ -4,19 +4,23 @@
     python -m ptbxl_torch.demo_inference --device cpu    # on the host, explicitly
 
 Prints the per-class probabilities of the demo record and writes the CAM
-overlay PNG under ``--out_dir``.  Accepts ``.npy`` ([12, T]) and ``.npz``
-(``ecg``, ``y``, ``classes``) files like the reference.
+overlay PNG under ``--out_dir`` where matplotlib imports (else it says it
+skipped the PNG; the GPU machine has no matplotlib).  Accepts ``.npy``
+([12, T]) and ``.npz`` (``ecg``, ``y``, ``classes``) files like the
+reference.  ``main`` returns (probs [L], PNG path or None).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ptbxl_torch.interpret.grad_cam import GradCAM
+from ptbxl_torch.interpret.plotting import draw_if_available, plot_ecg_with_cam
 from ptbxl_torch.models.factory import load_ecgcnn
 from ptbxl_torch.utils.device import resolve_device
 
@@ -36,7 +40,7 @@ def load_demo_file(path: str):
     raise ValueError(f"Unsupported demo file: {path}. Use .npy or .npz")
 
 
-def main(args) -> str:
+def main(args) -> Tuple[np.ndarray, Optional[str]]:
     device = resolve_device(args.device)
     print("[INFO] Device:", device)
 
@@ -74,11 +78,11 @@ def main(args) -> str:
     if y_true is not None and class_idx < len(y_true):
         title += f" | GT={int(y_true[class_idx])}"
 
-    from ptbxl_torch.interpret.plotting import plot_ecg_with_cam
-
-    plot_ecg_with_cam(ecg=ecg_np, cam=cam, lead_idx=args.lead, title=title, save_path=fig_path)
-    print(f"[SAVE] Demo Grad-CAM figure saved to: {fig_path}")
-    return fig_path
+    fig_path = draw_if_available(plot_ecg_with_cam, ecg=ecg_np, cam=cam, lead_idx=args.lead,
+                                 title=title, save_path=fig_path)
+    if fig_path is not None:
+        print(f"[SAVE] Demo Grad-CAM figure saved to: {fig_path}")
+    return probs, fig_path
 
 
 def parse_args(argv=None):

@@ -11,7 +11,8 @@
   signals; the per-lead z-score runs on the device
 * ``engine='kernel'`` runs the hand-written fused forward (K2, or K3 for
   ``arch='multimodal'``; f32 compute, its conv blocks in 3xTF32 on the tensor
-  cores), ``engine='framework'`` the ``nn.Module`` on cuDNN, and
+  cores), ``engine='framework'`` the ``nn.Module`` on cuDNN (the JAX
+  Predictor's names ``'pallas'`` and ``'xla'`` are taken for them), and
   ``engine='auto'`` takes the kernel for chunks of at most
   ``PTBXL_TORCH_KERNEL_MAX_BATCH`` records: by default 1024, the largest chunk
   at which the kernel engine was no slower than cuDNN f32 at ``'highest'`` on
@@ -50,6 +51,7 @@ KERNEL_MAX_BATCH = int(os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH", "1024"))
 
 _ARCHS = ("ecgcnn", "multimodal")
 _ENGINES = ("auto", "framework", "kernel")
+ENGINE_ALIASES = {"xla": "framework", "pallas": "kernel"}  # the JAX Predictor's names
 _PRECISIONS = ("highest", "default")
 
 
@@ -81,8 +83,10 @@ class Predictor:
             raise NotImplementedError("precision='int8' comes with ROADMAP queue 1 item 9")
         if precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {_PRECISIONS + ('int8',)}, got {precision!r}")
+        engine = ENGINE_ALIASES.get(engine, engine)
         if engine not in _ENGINES:
-            raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
+            raise ValueError(
+                f"engine must be one of {_ENGINES + tuple(ENGINE_ALIASES)}, got {engine!r}")
         self.device = resolve_device(device)
         self.classes = classes
         self.chunk_size = chunk_size

@@ -10,7 +10,7 @@ drawn, so the port imports without it.
 from __future__ import annotations
 
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -74,6 +74,18 @@ def plot_ecg_with_cam(
     os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
     fig.savefig(save_path, dpi=300)
     plt.close(fig)
+
+
+def draw_if_available(draw, **kw) -> Optional[str]:
+    """``draw(**kw)`` (one of this module's plots) where matplotlib imports:
+    its ``save_path``; else one ``[INFO] ... skipped`` line naming it, and None."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("[INFO] matplotlib is not installed; skipped the figure", kw["save_path"])
+        return None
+    draw(**kw)
+    return kw["save_path"]
 
 
 def plot_ecg_and_demo_importance(

@@ -14,11 +14,21 @@ cases as scikit-learn 1.9 gives them:
   ``threshold``.  For one label (``[N]`` or ``[N, 1]``, scikit-learn's
   binary case) the macro mean runs over the classes 0 and 1 present in
   ``y_true`` or the predictions, as scikit-learn does.
+* a NaN or infinite probability anywhere in ``y_prob`` makes both
+  ``auroc_macro`` and ``auprc_macro`` ``nan``: scikit-learn raises on it and
+  the JAX function turns the raise into ``nan``.
+
+For one label ``roc_auc`` / ``average_precision`` give scikit-learn's
+``roc_auc_score`` / ``average_precision_score`` and raise ``ValueError`` on
+a non-finite score as they do; ``roc_curve`` and ``precision_recall_curve``
+give the arrays of scikit-learn's functions of those names (the figures of
+``analysis/figures.py`` draw them).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import warnings
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -45,17 +55,91 @@ def _auroc(y: np.ndarray, s: np.ndarray) -> float:
     return float((r[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 
 
+def _counts_at_thresholds(y: np.ndarray, s: np.ndarray):
+    """(fps, tps, thresholds) at each distinct score, scores descending
+    (scikit-learn's ``confusion_matrix_at_thresholds``); ``y`` is bool."""
+    order = np.argsort(-s, kind="mergesort")
+    s_sorted = s[order]
+    last = np.r_[np.flatnonzero(np.diff(s_sorted)), len(s) - 1]
+    tps = np.cumsum(y[order], dtype=np.float64)[last]
+    fps = 1.0 + last - tps
+    return fps, tps, s_sorted[last]
+
+
 def _average_precision(y: np.ndarray, s: np.ndarray) -> float:
     pos = y == 1
     if not pos.any():
         return 0.0
-    order = np.argsort(-s, kind="mergesort")
-    s_sorted, hits = s[order], pos[order].astype(np.float64)
-    last = np.r_[np.flatnonzero(s_sorted[1:] != s_sorted[:-1]), len(s) - 1]  # a threshold each
-    tps = np.cumsum(hits)[last]
-    precision = tps / (last + 1.0)
+    fps, tps, _ = _counts_at_thresholds(pos, s)
     recall = tps / tps[-1]
-    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+    return float(np.sum(np.diff(np.r_[0.0, recall]) * tps / (tps + fps)))
+
+
+def _check_finite(s: np.ndarray) -> None:
+    """scikit-learn's ``assert_all_finite`` on scores."""
+    if np.isnan(s).any():
+        raise ValueError("Input contains NaN.")
+    if not np.isfinite(s).all():
+        raise ValueError(f"Input contains infinity or a value too large for {s.dtype!r}.")
+
+
+def _binary(y_true, y_score) -> Tuple[np.ndarray, np.ndarray]:
+    """One label's (y == 1, scores) as 1-D arrays, the scores finite."""
+    y = np.asarray(y_true).reshape(-1) == 1
+    s = np.asarray(y_score).reshape(-1)
+    if y.shape != s.shape:
+        raise ValueError(f"y_true has {y.size} values, y_score {s.size}")
+    _check_finite(s)
+    return y, s
+
+
+def roc_auc(y_true, y_score) -> float:
+    """``roc_auc_score`` of one label: ``nan`` where ``y_true`` holds one value."""
+    y, s = _binary(y_true, y_score)
+    return _auroc(y.astype(np.int8), s)
+
+
+def average_precision(y_true, y_score) -> float:
+    """``average_precision_score`` of one label: 0 where it has no positive."""
+    y, s = _binary(y_true, y_score)
+    return _average_precision(y.astype(np.int8), s)
+
+
+def roc_curve(y_true, y_score) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(fpr, tpr, thresholds) as ``sklearn.metrics.roc_curve`` gives them
+    (``drop_intermediate=True``): collinear points dropped, ``(0, 0)`` at
+    threshold ``inf`` in front; a rate with no sample of its class is nan."""
+    y, s = _binary(y_true, y_score)
+    fps, tps, thr = _counts_at_thresholds(y, s)
+    if fps.shape[0] > 2:
+        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True]
+        fps, tps, thr = fps[keep], tps[keep], thr[keep]
+    fps, tps = np.r_[0.0, fps], np.r_[0.0, tps]
+    thr = np.r_[np.inf, thr.astype(np.float64)]
+    rates = []
+    for counts, what in ((fps, "negative"), (tps, "positive")):
+        if counts[-1] <= 0:
+            warnings.warn(f"No {what} samples in y_true: its rate is nan", stacklevel=2)
+            rates.append(np.full(counts.shape, np.nan))
+        else:
+            rates.append(counts / counts[-1])
+    return rates[0], rates[1], thr
+
+
+def precision_recall_curve(y_true, y_score) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(precision, recall, thresholds) as ``sklearn.metrics.precision_recall_curve``
+    gives them: thresholds ascending, precision ending in 1 and recall in 0;
+    with no positive the recall is 1 at every threshold."""
+    y, s = _binary(y_true, y_score)
+    fps, tps, thr = _counts_at_thresholds(y, s)
+    precision = tps / (tps + fps)  # every threshold holds a sample
+    if tps[-1] == 0:
+        warnings.warn("No positive class found in y_true, recall is set to one for all "
+                      "thresholds.", stacklevel=2)
+        recall = np.ones_like(tps)
+    else:
+        recall = tps / tps[-1]
+    return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0], thr[::-1]
 
 
 def _f1(t: np.ndarray, p: np.ndarray) -> float:
@@ -73,11 +157,14 @@ def compute_metrics(y_true: np.ndarray, y_prob: np.ndarray, threshold: float = 0
         y_true, y_prob = y_true[:, None], y_prob[:, None]
     y_pred = y_prob >= threshold
     cols = range(y_true.shape[1])
-    metrics = {
-        "auroc_macro": float(np.mean([_auroc(y_true[:, j], y_prob[:, j]) for j in cols])),
-        "auprc_macro": float(np.mean([_average_precision(y_true[:, j], y_prob[:, j])
-                                      for j in cols])),
-    }
+    if np.isfinite(y_prob).all():
+        metrics = {
+            "auroc_macro": float(np.mean([_auroc(y_true[:, j], y_prob[:, j]) for j in cols])),
+            "auprc_macro": float(np.mean([_average_precision(y_true[:, j], y_prob[:, j])
+                                          for j in cols])),
+        }
+    else:  # scikit-learn raises on a non-finite score; the JAX function gives nan
+        metrics = {"auroc_macro": float("nan"), "auprc_macro": float("nan")}
     t = y_true == 1
     if y_true.shape[1] == 1:  # scikit-learn's binary case: macro over the classes present
         t, p = t[:, 0], y_pred[:, 0]

@@ -107,8 +107,9 @@ def test_demo_cli_on_cpu(tmp_path, capsys):
     args = demo_inference.parse_args([
         "--demo_path", os.path.join(HERE, "data/demo/single/single_sample_00.npz"),
         "--ckpt", CKPT, "--out_dir", str(tmp_path), "--device", "cpu"])
-    path = demo_inference.main(args)
+    probs, path = demo_inference.main(args)
     assert os.path.getsize(path) > 0 and path.endswith("single_sample_00_gradcam_MI.png")
     out = capsys.readouterr().out
     p_mi = golden("baseline")["probs"][0, 0]
     assert f"MI: {p_mi:.3f}" in out
+    assert probs.shape == (5,) and abs(float(probs[0]) - p_mi) < 5e-4

@@ -139,7 +139,20 @@ def test_multimodal_raises():
 
 
 def test_bad_engine_or_precision():
-    with pytest.raises(ValueError, match="engine"):
-        _port(engine="xla")
+    """'xla' and 'pallas' are the JAX names of the engines (below); an unknown
+    name raises and lists them."""
+    with pytest.raises(ValueError, match="engine must be one of .*'xla', 'pallas'"):
+        _port(engine="tpu")
     with pytest.raises(ValueError, match="precision"):
         _port(precision="fp8")
+
+
+@pytest.mark.parametrize("alias,engine", [("xla", "framework"), ("pallas", "kernel")])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_jax_engine_names_are_aliases(sigs, alias, engine, precision):
+    """The JAX Predictor's engine names route as the port's own and give the same probs."""
+    a, b = _port(engine=alias, precision=precision), _port(engine=engine, precision=precision)
+    assert a.engine == b.engine == engine
+    for n in (1, 7, 512, 2048):
+        assert a._use_kernel(n) == b._use_kernel(n) == (engine == "kernel")
+    np.testing.assert_array_equal(a(sigs), b(sigs))

@@ -1,6 +1,6 @@
 """The PyTorch port imports nothing of JAX or of the JAX package, and its
 code imports none of the packages the GPU machine lacks (pandas, PyYAML,
-scikit-learn, wfdb) at any level; matplotlib only inside functions."""
+scikit-learn, wfdb) at any level; matplotlib and seaborn only inside functions."""
 
 import ast
 import glob
@@ -13,6 +13,7 @@ import pytest
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ptbxl_tpu")
 ABSENT_ON_GPU = ("pandas", "yaml", "sklearn", "wfdb")  # not installed on the GPU machine
+DRAWN = ("matplotlib", "seaborn")  # imported only inside the functions that draw
 PORT_FILES = sorted(
     os.path.relpath(p, HERE)
     for p in glob.glob(os.path.join(HERE, "ptbxl_torch", "**", "*.py"), recursive=True)
@@ -43,7 +44,17 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.cli.train_af_binary, ptbxl_torch.cli.ecg_baseline_test\n"
         "import ptbxl_torch.cli.ecg_multimodal_test, ptbxl_torch.cli.af_binary_test\n"
         "import ptbxl_torch.cli.grad_cam_ecg_demo\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ABSENT_ON_GPU!r}]\n"
+        "import ptbxl_torch.analysis, ptbxl_torch.analysis.merge, ptbxl_torch.analysis.figures\n"
+        "import ptbxl_torch.data.demo_export, ptbxl_torch.data.ptb_test\n"
+        "import ptbxl_torch.cli.merge_all_test, ptbxl_torch.cli.analyse_merged_test\n"
+        "import ptbxl_torch.cli.grad_cam_ecg_baseline, ptbxl_torch.cli.grad_cam_af\n"
+        "import ptbxl_torch.cli.plot_results, ptbxl_torch.cli.plot_distributions\n"
+        "import ptbxl_torch.cli.plot_baseline_only, ptbxl_torch.cli.plot_mm_only\n"
+        "import ptbxl_torch.cli.prepare_data, ptbxl_torch.cli.printsize\n"
+        "import ptbxl_torch.cli.make_demo_pack, ptbxl_torch.cli.save_demo_ecg\n"
+        "import ptbxl_torch.cli.save_demo_multimodal\n"
+        f"banned = {FORBIDDEN + ABSENT_ON_GPU + DRAWN!r}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -89,14 +100,23 @@ def test_port_file_list_is_complete():
                  "ptbxl_torch/cli/train_multimodal_prototype.py",
                  "ptbxl_torch/cli/train_af_binary.py", "ptbxl_torch/cli/ecg_baseline_test.py",
                  "ptbxl_torch/cli/ecg_multimodal_test.py", "ptbxl_torch/cli/af_binary_test.py",
-                 "ptbxl_torch/cli/grad_cam_ecg_demo.py"):
+                 "ptbxl_torch/cli/grad_cam_ecg_demo.py", "ptbxl_torch/analysis/__init__.py",
+                 "ptbxl_torch/analysis/merge.py", "ptbxl_torch/analysis/figures.py",
+                 "ptbxl_torch/data/demo_export.py", "ptbxl_torch/data/ptb_test.py",
+                 "ptbxl_torch/cli/merge_all_test.py", "ptbxl_torch/cli/analyse_merged_test.py",
+                 "ptbxl_torch/cli/grad_cam_ecg_baseline.py", "ptbxl_torch/cli/grad_cam_af.py",
+                 "ptbxl_torch/cli/plot_results.py", "ptbxl_torch/cli/plot_distributions.py",
+                 "ptbxl_torch/cli/plot_baseline_only.py", "ptbxl_torch/cli/plot_mm_only.py",
+                 "ptbxl_torch/cli/prepare_data.py", "ptbxl_torch/cli/printsize.py",
+                 "ptbxl_torch/cli/make_demo_pack.py", "ptbxl_torch/cli/save_demo_ecg.py",
+                 "ptbxl_torch/cli/save_demo_multimodal.py"):
         assert path in PORT_FILES, path
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_source_imports_nothing_absent_on_the_gpu_machine(path):
     """pandas, PyYAML, scikit-learn and wfdb at no level (top, function or
-    conditional); matplotlib only inside a function."""
+    conditional); matplotlib and seaborn only inside a function."""
     tree = ast.parse(open(os.path.join(HERE, path)).read(), filename=path)
     bad = []
     for node in ast.walk(tree):
@@ -109,4 +129,4 @@ def test_source_imports_nothing_absent_on_the_gpu_machine(path):
     top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
     names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
-    assert not [n for n in names if n.split(".")[0] == "matplotlib"], path
+    assert not [n for n in names if n.split(".")[0] in DRAWN], path

@@ -57,3 +57,38 @@ class InMemoryECGDemo(InMemoryECG):
     def __init__(self, n: int, t: int, labels: int = 5, seed: int = 0):
         super().__init__(n, t, labels, seed)
         self.demo = np.random.default_rng(seed + 1).uniform(size=(n, 5)).astype(np.float32)
+
+
+CLASSES = ["MI", "STTC", "HYP", "CD", "NORM"]
+
+
+def write_pred_csvs(root: str, n: int = 12, seed: int = 0) -> list:
+    """Three prediction CSVs with the eval CLIs' columns (06, 07, 08), float32
+    probabilities written as they write them: [baseline, multimodal, AF] paths."""
+    from ptbxl_torch.utils.table import write_csv
+
+    rng = np.random.default_rng(seed)
+    y = (rng.uniform(size=(n, 6)) < 0.4).astype(int)
+    paths = []
+    for name, labels, suffix in (("base", CLASSES, ""), ("mm", CLASSES, "_mm"),
+                                 ("af", ["AF"], "")):
+        cols = {}
+        for j, c in enumerate(labels):
+            prob = rng.uniform(size=n).astype(np.float32)
+            cols[f"y_true_{c}"] = y[:, 5 if c == "AF" else j]
+            cols[f"y_prob_{c}{suffix}"] = prob
+            cols[f"y_pred_{c}{suffix}"] = (prob >= 0.5).astype(int)
+        path = os.path.join(root, f"{name}.csv")
+        write_csv(path, cols)
+        paths.append(path)
+    return paths
+
+
+def block_module(monkeypatch, name: str) -> None:
+    """Make ``import name`` (and its submodules) raise ImportError for the
+    test, as on a machine where it is not installed."""
+    import sys
+
+    for mod in [m for m in list(sys.modules) if m == name or m.startswith(name + ".")]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setitem(sys.modules, name, None)
