@@ -24,11 +24,16 @@ checkpoint, then the port bench's hybrid row and the tool probes' functions at
 their shapes, then the PTB-XL data layer, CLIs 03-08 and 12, the eval path after
 them (09, 10, 14-17, 00's pack and exports, 02, printsize, Grad-CAM CLIs 11 and
 13, the demo CLI) and the bench's pipeline rows on a synthetic PTB-XL tree of
-[12, 5000] records made under ``build/``), checks them against the golden
+[12, 5000] records made under ``build/``; then what the trainer gained beside
+the step: the step timer, a trace, the numerics switch, the signal ops and
+equal-seed epochs; then the data-parallel path: a 1-rank NCCL group, two
+gloo ranks on the one card running ``dryrun_multichip(2)`` and a trainer
+epoch on that tree, and ``Predictor(data_parallel=True)``), checks them against the golden
 outputs, the demo-pack parity gate, the JAX scripts' CSV schemas, ``Predictor``,
 ``GradCAM``, ``compute_metrics`` and ``per_class_scores``, and times the kernels, the
 train step and the epoch beside their plain versions, the framework (cuDNN,
-torch's own pool backward) path and their bounds.  The launch counters are set
+torch's own pool backward) path and their bounds; the crossover sweeps give
+``Predictor``'s two engine limits, f32 and bf16, and fail below the shipped ones.  The launch counters are set
 to 0 just before each main path and read just after it.  Each phase prints one
 JSON line; any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero and
@@ -623,6 +628,275 @@ def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -
             "profiled_epoch_wall_s": prof_wall_s, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / (prof_wall_s * 1e3),
             "val_records": len(val_ds), "val_epoch_s": val_s, "checkpoint_writes_s": ckpt_s}
+
+
+EXTRAS_N = 1024  # train_extras' timed epoch: 16 steps at B=64; the equal-seed epochs take half
+PERF_LINE = r"\[PERF\] train: (\d+) records in ([\d.]+)s -> ([\d.]+) rec/s"
+
+
+def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
+    """What the trainer gained beside the step, on the card: one epoch under
+    ``PTBXL_TORCH_PERF=1`` (the step timer's records/s beside the epoch's own
+    clock), a ``torch.profiler`` trace of three steps, the numerics switch on a
+    batch with one ``inf`` sample (it raises before the update) and its cost a
+    step, the signal ops on [64, 5000, 12] against their CPU result (1e-5, unit
+    normal input), and two epochs from equal seeds: the max |diff| of the head
+    weights is measured, not gated (cuDNN's wgrad need not be bit-deterministic).
+    K6's launches are counted from 0 over the phase."""
+    import io
+    import re
+    import tempfile
+
+    from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
+    from ptbxl_torch.models.factory import build_ecgcnn
+    from ptbxl_torch.ops import signal
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+    from ptbxl_torch.training.loop import make_train_step, train_one_epoch
+    from ptbxl_torch.training.train_state import create_train_state
+    from ptbxl_torch.utils.profiling import trace
+
+    ds = RawECGSet(EXTRAS_N, seed + 5)
+    src = BatchSource(ds, TRAIN_B, shuffle=True, seed=seed)
+    half = BatchSource(RawECGSet(EXTRAS_N // 2, seed + 6), TRAIN_B, shuffle=True, seed=seed)
+    step = make_train_step()
+    k6.launches = 0
+
+    def fresh():
+        return create_train_state(build_ecgcnn(num_labels=5, seed=seed), TRAIN_LR, TRAIN_WD)
+
+    st = fresh()
+    train_one_epoch(st, step, device_prefetch(half.epoch(0)))  # warm-up
+    buf = io.StringIO()
+    os.environ["PTBXL_TORCH_PERF"] = "1"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _, loss = train_one_epoch(st, step, device_prefetch(src.epoch(1)))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        del os.environ["PTBXL_TORCH_PERF"]
+    print(buf.getvalue(), end="", flush=True)
+    m = re.search(PERF_LINE, buf.getvalue())
+    if m is None or int(m.group(1)) != len(ds) or not np.isfinite(loss):
+        raise AssertionError(f"timed epoch: loss {loss}, report {buf.getvalue()!r}")
+
+    batch = next(iter(device_prefetch(src.epoch(2))))
+    with tempfile.TemporaryDirectory() as tdir:
+        with trace(tdir):
+            for _ in range(3):
+                step(st, batch)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(tdir, "*.pt.trace.json*"))
+        if not files:
+            raise AssertionError(f"trace wrote no trace file: {os.listdir(tdir)}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_info = {"files": len(files), "bytes": os.path.getsize(files[0]),
+                      "kernel_events": sum(1 for e in events if e.get("cat") == "kernel")}
+
+    checked = make_train_step(check_numerics=True)
+    step_ms = time_ms(lambda: step(st, batch))
+    checked_ms = time_ms(lambda: checked(st, batch))
+    bad = _train_batch(TRAIN_B, gen)
+    bad["ecg"][3, 100, 5] = float("inf")
+    before = {k: v.clone() for k, v in st.model.state_dict().items()}
+    try:
+        checked(st, bad)
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("the numerics switch let a batch with an inf sample through")
+    moved = [k for k, v in st.model.state_dict().items()
+             if "running" not in k and not torch.equal(v, before[k])]
+    if moved:
+        raise AssertionError(f"the numerics switch raised after the update: {moved[:3]}")
+
+    x = torch.randn(64, T_FULL, LEADS, generator=gen, device="cuda")
+    xc = x.cpu()
+    ops = {"fir_bandpass": signal.fir_bandpass,
+           "remove_baseline_wander": signal.remove_baseline_wander,
+           "resample_linear": lambda v: signal.resample_linear(v, 500.0, 250.0)}
+    signal_info = {name: {"max_abs_err_vs_cpu": gate(f"{name} vs CPU", max_diff(fn(x).cpu(),
+                                                                                 fn(xc)), 1e-5),
+                          "ms": time_ms(lambda: fn(x))} for name, fn in ops.items()}
+    del x, xc
+
+    heads, losses = [], []
+    for _ in range(2):
+        st2 = fresh()
+        _, l2 = train_one_epoch(st2, step, device_prefetch(half.epoch(3)))
+        heads.append(st2.model.head.weight.detach().clone())
+        losses.append(l2)
+    torch.cuda.synchronize()
+    return {"phase": "train_extras", "batch": TRAIN_B, "records": len(ds),
+            "timer": {"records": int(m.group(1)), "seconds": float(m.group(2)),
+                      "records_per_s": float(m.group(3))},
+            "epoch_wall_s": wall_s, "epoch_records_per_s": len(ds) / wall_s, "train_bce": loss,
+            "trace": trace_info,
+            "check_numerics": {"raised": raised, "step_ms": step_ms, "checked_step_ms": checked_ms},
+            "signal": signal_info,
+            "equal_seed": {"records": EXTRAS_N // 2, "head_weight_max_abs_diff":
+                           float((heads[0] - heads[1]).abs().max()),
+                           "losses": losses, "loss_abs_diff": abs(losses[0] - losses[1])},
+            "launches": {"relu_pool_bwd": k6.launches}}
+
+
+def _fit_tree(tree: str, out: str, seed: int) -> None:
+    """One trainer epoch of the baseline ECGCNN on the synthetic tree, its CSV
+    and best checkpoint in ``out`` (a rank function of ``phase_ddp``)."""
+    from ptbxl_torch.data import PTBXLDataset
+    from ptbxl_torch.models.factory import build_ecgcnn
+    from ptbxl_torch.training.trainer import TrainRun, train
+
+    train(TrainRun(model=build_ecgcnn(num_labels=5, seed=seed),
+                   train_ds=PTBXLDataset(tree, "train", CLASSES),
+                   val_ds=PTBXLDataset(tree, "val", CLASSES), batch_size=TRAIN_B, epochs=1,
+                   lr=TRAIN_LR, weight_decay=TRAIN_WD, seed=seed, run_name="ddp",
+                   metrics_csv=os.path.join(out, "m.csv"), ckpt_path=os.path.join(out, "best.npz"),
+                   config_path="chip_smoke.py", classes=CLASSES, pth_export=False,
+                   train_desc=None, eval_desc=None))
+
+
+def _eval_tree(tree: str, ckpt: str, seed: int) -> np.ndarray:
+    """The val split's probabilities of the checkpoint ``ckpt`` through the eval
+    step, sharded over the process group's ranks when there is one (a rank
+    function of ``phase_ddp``)."""
+    import torch.distributed as dist
+
+    from ptbxl_torch.data import PTBXLDataset
+    from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
+    from ptbxl_torch.models.factory import load_ecgcnn
+    from ptbxl_torch.parallel.mesh import make_mesh
+    from ptbxl_torch.training.loop import make_eval_step
+    from ptbxl_torch.training.train_state import TrainState
+
+    model, _ = load_ecgcnn(ckpt)
+    step = make_eval_step(mesh=make_mesh() if dist.is_initialized() else None)
+    src = BatchSource(PTBXLDataset(tree, "val", CLASSES), TRAIN_B, shuffle=False, seed=seed,
+                      emit_adc=True)
+    probs = []
+    for b in device_prefetch(src.epoch(0)):
+        p, _ = step(TrainState(model), b)
+        probs.append(p.cpu()[b["mask"].cpu() > 0])
+    return torch.cat(probs).numpy()
+
+
+def phase_ddp(seed: int, tree: str, work: str) -> dict:
+    """The data-parallel training path on the card: (1) a 1-rank NCCL group in
+    this process, the sharded multimodal SGD step at [8, 5000, 12] against the
+    plain step (1e-6: loss relative, BN stats, params), K6 counted from 0;
+    (2) two processes on the one card over gloo with CUDA tensors (NCCL refuses
+    two ranks on one device): ``dryrun_multichip(2)`` at [8, 5000, 12] under
+    its three 1e-5 gates; (3) one trainer epoch on the synthetic tree on those
+    two ranks against the same epoch in one process, run twice: the train loss
+    within 1e-3 (tests/test_training.py:197-258).  The val loss and rank
+    metrics of the three epochs are reported, not gated: the conv biases feed
+    BatchNorm, so their true gradient is 0 and what reaches them is rounding
+    noise (~1e-9), which AdamW's normalized update turns into moves of up to
+    ~lr a step; train-mode BatchNorm cancels them, but eval mode subtracts a
+    running mean that lags them, so the val outputs follow the noise of the
+    sums' order (sharded or not) and of cuDNN's wgrad (which is not
+    bit-deterministic: the second unsharded epoch shows that spread).  The
+    eval path's gather is held exactly instead: the val probabilities of one
+    checkpoint through the eval step on the two ranks against one process
+    (1e-5) and their rank metrics."""
+    import torch.distributed as dist
+
+    from ptbxl_torch.models.factory import build_multimodal
+    from ptbxl_torch.parallel import dryrun
+    from ptbxl_torch.parallel.multihost import maybe_initialize_distributed
+    from ptbxl_torch.training.metrics import compute_metrics
+
+    state = {k: v.cpu() for k, v in build_multimodal(num_labels=5, seed=seed,
+                                                     device="cpu").state_dict().items()}
+    batch = dryrun.make_batch(8, T_FULL, seed)
+    maybe_initialize_distributed(f"tcp://127.0.0.1:{dryrun.free_port()}", 1, 0, "nccl", "cuda")
+    try:
+        backend = dist.get_backend()
+        sharded = dryrun.one_step(state, batch, "sgd", 1, "cuda")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    plain = dryrun.one_step(state, batch, "sgd", None, "cuda")
+    one_rank = {
+        "backend": backend, "relu_pool_bwd_launches": sharded["launches"],
+        "loss_rel_err": gate("1-rank loss", abs(sharded["loss"] - plain["loss"])
+                             / abs(plain["loss"]), 1e-6),
+        "bn_max_abs_err": gate("1-rank BN stats", dryrun.max_diff(
+            dryrun.bn_stats(sharded["state"]), dryrun.bn_stats(plain["state"])), 1e-6),
+        "params_max_abs_err": gate("1-rank SGD params", dryrun.max_diff(
+            dryrun.params(sharded["state"]), dryrun.params(plain["state"])), 1e-6)}
+    if sharded["launches"] != 4:
+        raise AssertionError(f"the sharded step launched K6 {sharded['launches']} times, not 4")
+
+    t0 = time.perf_counter()
+    two_rank = dryrun.dryrun_multichip(2, T_FULL, "gloo", "cuda")
+    two_rank["wall_s"] = time.perf_counter() - t0
+
+    outs = {k: os.path.join(work, f"ddp_{k}") for k in ("one", "again", "two")}
+    walls = {}
+    for k, out in outs.items():
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        if k == "two":
+            dryrun.run_ranks(_fit_tree, 2, (tree, out, seed), "gloo", "cuda", timeout=600)
+        else:
+            _fit_tree(tree, out, seed)
+        walls[k] = time.perf_counter() - t0
+    rows = {k: _csv_columns(os.path.join(out, "m.csv")) for k, out in outs.items()}
+    cols = ("train_bce", "val_auroc_macro", "val_auprc_macro", "val_f1_macro", "val_bce_loss")
+    epoch = {k: {c: float(r[c][0]) for c in cols} for k, r in rows.items()}
+    gate("sharded epoch train_bce", abs(epoch["two"]["train_bce"] - epoch["one"]["train_bce"]),
+         1e-3)
+
+    ckpt = os.path.join(outs["one"], "best.npz")
+    want = _eval_tree(tree, ckpt, seed)
+    got = dryrun.run_ranks(_eval_tree, 2, (tree, ckpt, seed), "gloo", "cuda", timeout=600)
+    if got.shape != want.shape:
+        raise AssertionError(f"sharded eval gave {got.shape} probabilities, not {want.shape}")
+    from ptbxl_torch.data import PTBXLDataset
+
+    y = PTBXLDataset(tree, "val", CLASSES).y
+    m_one, m_two = compute_metrics(y, want), compute_metrics(y, got)
+    return {"phase": "ddp", "one_rank_nccl": one_rank, "dryrun_multichip_2": two_rank,
+            "epoch": {"ranks": 2, "backend": "gloo", "batch": TRAIN_B, "csv": epoch,
+                      "wall_s": walls,
+                      "val_bce_abs_diff": {k: abs(epoch[k]["val_bce_loss"]
+                                                  - epoch["one"]["val_bce_loss"])
+                                           for k in ("two", "again")},
+                      "rank_metrics_equal": {
+                          "two_vs_one": all(epoch["two"][c] == epoch["one"][c] for c in cols[1:4]),
+                          "again_vs_one": all(epoch["again"][c] == epoch["one"][c]
+                                              for c in cols[1:4])}},
+            "eval_one_checkpoint": {
+                "records": int(want.shape[0]),
+                "probs_max_abs_err": gate("sharded eval probs", float(np.abs(got - want).max()),
+                                          1e-5),
+                "metrics_one": m_one, "metrics_two": m_two,
+                "rank_metrics_equal": all(m_one[k] == m_two[k]
+                                          for k in ("auroc_macro", "auprc_macro", "f1_macro"))}}
+
+
+def phase_data_parallel_predictor() -> dict:
+    """``Predictor(data_parallel=True)`` over every visible GPU against the
+    framework engine on one, within PARITY_TOL (2e-5), at N = 7 and 512."""
+    from ptbxl_torch.inference import Predictor
+
+    dp = Predictor.from_checkpoint(CKPT, data_parallel=True)
+    fw = Predictor.from_checkpoint(CKPT, engine="framework")
+    sigs = demo_signals()
+    reqs = np.concatenate([sigs] * 74)[:512]
+    errs, ms = {}, {}
+    for n, xs in (("7", sigs), ("512", reqs)):
+        errs[n] = gate(f"data-parallel Predictor N={n}", float(np.abs(dp(xs) - fw(xs)).max()),
+                       2e-5)
+        t0 = time.perf_counter()
+        dp(xs)
+        ms[n] = (time.perf_counter() - t0) * 1e3
+    return {"phase": "data_parallel_predictor", "devices": len(dp._replicas),
+            "engine": dp.engine, "max_abs_err_vs_framework": errs, "host_ms": ms}
 
 
 def phase_k4(folded, cases: dict) -> dict:
@@ -1573,9 +1847,34 @@ CROSSOVER_N = (1, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 def crossover_n(rows: dict) -> dict:
     """From a crossover sweep: the largest N at which the kernel is no slower than
-    cuDNN f32 (what ``KERNEL_MAX_BATCH`` is set to)."""
-    wins = [b for b in CROSSOVER_N if rows[b]["kernel_ms"] <= rows[b]["framework_f32_ms"]]
-    return {"kernel_no_slower_than_f32_max_n": max(wins, default=0)}
+    cuDNN f32 (what ``KERNEL_MAX_BATCH`` is set to) and than cuDNN bf16 (what
+    ``KERNEL_MAX_BATCH_BF16`` is set to: the ``default`` precision's other
+    engine).  Raises if the sweep puts the bf16 crossover below the constant
+    the port ships."""
+    from ptbxl_torch import inference
+
+    out = {}
+    for key, col in (("kernel_no_slower_than_f32_max_n", "framework_f32_ms"),
+                     ("kernel_no_slower_than_bf16_max_n", "framework_bf16_ms")):
+        wins = [b for b in CROSSOVER_N if rows[b]["kernel_ms"] <= rows[b][col]]
+        out[key] = max(wins, default=0)
+    if out["kernel_no_slower_than_bf16_max_n"] < inference.KERNEL_MAX_BATCH_BF16:
+        raise AssertionError(f"the default crossover {out['kernel_no_slower_than_bf16_max_n']} "
+                             f"is below KERNEL_MAX_BATCH_BF16={inference.KERNEL_MAX_BATCH_BF16}")
+    return out
+
+
+def default_routing(p_def, p_hi, cases: dict, counter) -> dict:
+    """``Predictor(precision='default', engine='auto')`` on each case against
+    ``highest`` (5e-3) and the engine it took (``counter()``: the kernel engine's
+    launch count, set to 0 by the caller)."""
+    out = {}
+    for n, args in cases.items():
+        before = counter()
+        err = float(np.abs(p_def(*args[0], **args[1]) - p_hi(*args[0], **args[1])).max())
+        out[n] = {"max_abs_err_vs_highest": gate(f"default auto N={n}", err, 5e-3),
+                  "engine": "kernel" if counter() > before else "framework"}
+    return out
 
 
 def conv_block_ms(launches: list) -> list:
@@ -1905,8 +2204,25 @@ def main(argv=None) -> int:
     crossover_k1 = k1.launches  # K1's stats entry before every kernel-engine chunk
     if crossover_k1 <= 0:
         raise AssertionError("the crossover sweep launched no zscore kernel")
+    # the default precision on 'auto': its own crossover (KERNEL_MAX_BATCH_BF16),
+    # the engine each N took, K1 counted from 0 over the two calls
+    # (the 5e-3 gate is the demo pack's, bench.py's parity gate: N=512 is the
+    # pack's records repeated; on the raw noise requests the deviation is
+    # reported, not gated: bf16 through the whole network on inputs that are
+    # not ECGs)
+    p_def = Predictor.from_checkpoint(CKPT, precision="default")
+    pack512 = np.concatenate([sigs] * -(-BIG // len(sigs)))[:BIG]
+    k1.launches = 0
+    routing = default_routing(p_def, p_hi, {"7": ((sigs,), {}), str(BIG): ((pack512,), {})},
+                              lambda: k2.launches)
+    default_k1 = k1.launches
+    routing["noise_512_ungated"] = float(np.abs(p_def(requests) - p_hi(requests)).max())
+    if routing["7"]["engine"] != "kernel" or routing[str(BIG)]["engine"] != "framework":
+        raise AssertionError(f"default routing: {routing}")
     emit({"phase": "crossover", "ms": crossover, "kernel_max_batch": inference.KERNEL_MAX_BATCH,
-          "launches": {"zscore": crossover_k1}, **crossover_n(crossover)})
+          "kernel_max_batch_bf16": inference.KERNEL_MAX_BATCH_BF16,
+          "launches": {"zscore": crossover_k1, "zscore_default_auto": default_k1},
+          "default_auto": routing, **crossover_n(crossover)})
 
     # the same for the multimodal Predictor (K3 vs the framework engine)
     p_mm_kern = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", engine="kernel")
@@ -1918,8 +2234,21 @@ def main(argv=None) -> int:
             "framework_f32_ms": time_ms(lambda: p_mm_hi._forward(xb, db), reps=5),
             "framework_bf16_ms": time_ms(lambda: p_mm_lo._forward(xb, db), reps=5),
         }
+    p_mm_def = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", precision="default")
+    reps = -(-BIG // len(sigs_mm))
+    mm512 = (np.concatenate([sigs_mm] * reps)[:BIG], np.concatenate([demos_mm] * reps)[:BIG])
+    routing_mm = default_routing(
+        p_mm_def, p_mm_hi, {"7": ((sigs_mm,), {"demo": demos_mm}),
+                            str(BIG): ((mm512[0],), {"demo": mm512[1]})},
+        lambda: k2.launches_mm)
+    routing_mm["noise_512_ungated"] = float(np.abs(p_mm_def(requests, demo=req_demo)
+                                                   - p_mm_hi(requests, demo=req_demo)).max())
+    if routing_mm["7"]["engine"] != "kernel" or routing_mm[str(BIG)]["engine"] != "framework":
+        raise AssertionError(f"multimodal default routing: {routing_mm}")
     emit({"phase": "crossover_mm", "ms": crossover_mm,
-          "kernel_max_batch": inference.KERNEL_MAX_BATCH, **crossover_n(crossover_mm)})
+          "kernel_max_batch": inference.KERNEL_MAX_BATCH,
+          "kernel_max_batch_bf16": inference.KERNEL_MAX_BATCH_BF16,
+          "default_auto": routing_mm, **crossover_n(crossover_mm)})
 
     # where K2's and K3's time goes: per-launch device time from the profiler (CUPTI)
     breakdown, breakdown_mm = {}, {}
@@ -1938,6 +2267,8 @@ def main(argv=None) -> int:
     emit({"phase": "train_breakdown_ms", "batch": TRAIN_B,
           "pool_bwd": train_breakdown(args.seed, gen)})
     emit(train_epoch(args.seed))
+    extras_info = phase_train_extras(args.seed, gen)
+    emit(extras_info)
 
     # -- phase 7: K4's, K5's and P3's main paths (the bench's hybrid row, the
     # two probes), then their times beside the plain versions and the library
@@ -2023,6 +2354,9 @@ def main(argv=None) -> int:
         emit(phase_cli_eval(tree, work))
         analysis_info = phase_cli_analysis(tree, work)
         emit(analysis_info)
+        ddp_info = phase_ddp(args.seed, tree, work)
+        emit(ddp_info)
+    emit(phase_data_parallel_predictor())
     pipe_info = phase_pipeline()
     emit(pipe_info)
 
@@ -2045,7 +2379,7 @@ def main(argv=None) -> int:
     by_path = {name: {"ecgcnn": launches.get(name, 0), "multimodal": launches_mm[name]}
                for name in sources}
     by_path["zscore"].update(bench_hybrid_row=hybrid_info["launches"]["zscore"],
-                             crossover=crossover_k1)
+                             crossover=crossover_k1, predictor_default=default_k1)
     kernels = []
     for name, (src, replaces, err) in sources.items():
         t5, t1 = big[name], one[name]
@@ -2081,7 +2415,9 @@ def main(argv=None) -> int:
     t32, t16 = k6_times["float32"], k6_times["bfloat16"]
     k6_by_path = {"train": train_info["launches"]["relu_pool_bwd"], "grad_cam": launches_cam,
                   "grad_cam_cli": sum(
-                      analysis_info["grad_cam_cli"]["relu_pool_bwd_launches"].values())}
+                      analysis_info["grad_cam_cli"]["relu_pool_bwd_launches"].values()),
+                  "train_extras": extras_info["launches"]["relu_pool_bwd"],
+                  "ddp": ddp_info["one_rank_nccl"]["relu_pool_bwd_launches"]}
     kernels.append({
         "name": "relu_pool_bwd", "route": "cuda", "source": "ptbxl_torch/csrc/relu_pool.cu",
         "replaces": "ptbxl_tpu/ops/relu_pool.py:65",

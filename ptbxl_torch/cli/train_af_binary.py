@@ -6,6 +6,10 @@
 The JAX script's config, CSV (``<out_dir>/logs/metrics_af_binary.csv``) and
 checkpoint (``<out_dir>/ckpts/af_binary_best.npz``, which carries no
 classes, as the reference's).
+
+Under ``torchrun --nproc_per_node=N -m ptbxl_torch.cli.train_af_binary ...`` each
+process joins the launcher's group (``parallel/multihost.py``) and the
+trainer splits every batch over the ranks; it prints that data width.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import os
 from ptbxl_torch import config as C
 from ptbxl_torch.data import PTBXLAFDataset
 from ptbxl_torch.models.factory import build_ecgcnn, dtype_from_config
-from ptbxl_torch.training.trainer import TrainRun, train
+from ptbxl_torch.parallel.multihost import maybe_initialize_distributed
+from ptbxl_torch.training.trainer import TrainRun, report_data_width, train
 from ptbxl_torch.utils.device import resolve_device
 from ptbxl_torch.utils.rng import set_seed
 
@@ -30,6 +35,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda; 'cpu' runs on the host).")
     args = parser.parse_args(argv)
+    maybe_initialize_distributed(device=args.device)  # torchrun's group, if any
     device = resolve_device(args.device)
     print("[INFO] Device:", device.type)
 
@@ -74,6 +80,7 @@ def main(argv=None):
         device=device,
     )
 
+    report_data_width(int(train_cfg["batch_size"]))
     run = TrainRun(
         model=model,
         train_ds=train_ds,

@@ -7,6 +7,10 @@ The config schema, the metrics CSV (``<out_dir>/<run_name>/logs/
 metrics_ecg_baseline.csv``), the best checkpoint by val AUPRC
 (``ckpts/ecg_baseline_best.npz`` + ``.pth``) and the prints are the JAX
 script's; training runs through ``ptbxl_torch.training.trainer.train``.
+
+Under ``torchrun --nproc_per_node=N -m ptbxl_torch.cli.train_ecg_baseline ...`` each
+process joins the launcher's group (``parallel/multihost.py``) and the
+trainer splits every batch over the ranks; it prints that data width.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import os
 from ptbxl_torch import config as C
 from ptbxl_torch.data import PTBXLDataset
 from ptbxl_torch.models.factory import build_ecgcnn, dtype_from_config
-from ptbxl_torch.training.trainer import TrainRun, train
+from ptbxl_torch.parallel.multihost import maybe_initialize_distributed
+from ptbxl_torch.training.trainer import TrainRun, report_data_width, train
 from ptbxl_torch.utils.device import resolve_device
 from ptbxl_torch.utils.rng import set_seed
 
@@ -30,6 +35,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda; 'cpu' runs on the host).")
     args = parser.parse_args(argv)
+    maybe_initialize_distributed(device=args.device)  # torchrun's group, if any
     device = resolve_device(args.device)
     print("[INFO] Device (script import):", device.type)
 
@@ -80,6 +86,7 @@ def main(argv=None):
     ckpt_path = os.path.join(ckpt_dir, "ecg_baseline_best.npz")
     print("[INFO] Checkpoints ->", ckpt_path)
 
+    report_data_width(int(train_cfg["batch_size"]))
     run = TrainRun(
         model=model,
         train_ds=train_ds,

@@ -9,6 +9,10 @@ checkpoint (``<out_dir>/ckpts/<run_name>_best.npz``), early stopping
 (``train.early_stop_patience``), per-batch loss aggregation and the optional
 warm start of the ECG encoder from ``model.ecg_multimodal.pretrained_ecg_ckpt``
 (``load_checkpoint(arch="backbone")`` + ``merge_backbone``).
+
+Under ``torchrun --nproc_per_node=N -m ptbxl_torch.cli.train_multimodal_prototype ...`` each
+process joins the launcher's group (``parallel/multihost.py``) and the
+trainer splits every batch over the ranks; it prints that data width.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from ptbxl_torch import config as C
 from ptbxl_torch.data import PTBXLECGMultimodalDataset
 from ptbxl_torch.models.factory import build_multimodal, dtype_from_config, merge_backbone
 from ptbxl_torch.models.params_io import load_checkpoint
-from ptbxl_torch.training.trainer import TrainRun, train
+from ptbxl_torch.parallel.multihost import maybe_initialize_distributed
+from ptbxl_torch.training.trainer import TrainRun, report_data_width, train
 from ptbxl_torch.utils.device import resolve_device
 from ptbxl_torch.utils.rng import set_seed
 
@@ -34,6 +39,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda; 'cpu' runs on the host).")
     args = parser.parse_args(argv)
+    maybe_initialize_distributed(device=args.device)  # torchrun's group, if any
     device = resolve_device(args.device)
 
     cfg = C.load_config(args.config)
@@ -100,6 +106,7 @@ def main(argv=None):
     ckpt_path = os.path.join(ckpt_dir, f"{run_name}_best.npz")
     print(f"[INFO] Best checkpoint will be saved to: {ckpt_path}")
 
+    report_data_width(batch_size)
     run = TrainRun(
         model=model,
         train_ds=train_ds,

@@ -14,9 +14,15 @@
   cores), ``engine='framework'`` the ``nn.Module`` on cuDNN (the JAX
   Predictor's names ``'pallas'`` and ``'xla'`` are taken for them), and
   ``engine='auto'`` takes the kernel for chunks of at most
-  ``PTBXL_TORCH_KERNEL_MAX_BATCH`` records: by default 1024, the largest chunk
-  at which the kernel engine was no slower than cuDNN f32 at ``'highest'`` on
-  the H100 (chip_smoke.py's ``crossover`` phase, PERF.md)
+  ``KERNEL_MAX_BATCH`` records at ``'highest'`` (1024, the largest chunk at
+  which the kernel engine was no slower than cuDNN f32 on the H100) and at
+  most ``KERNEL_MAX_BATCH_BF16`` at ``'default'`` (16, where it was no slower
+  than cuDNN bf16; chip_smoke.py's ``crossover`` phases, PERF.md).
+  ``PTBXL_TORCH_KERNEL_MAX_BATCH``, when set, overrides both, as the JAX
+  package's single ``PTBXL_TPU_PALLAS_MAX_BATCH`` does.
+* ``data_parallel=True`` runs one framework-engine replica on each device
+  (every visible GPU, or the list given as ``device``) and splits each chunk's
+  rows across them in order (inference.py:94-97, 123-142, 285-305)
 * ``precision='highest'`` is f32 with TF32 off and the two-pass z-score;
   ``'default'`` runs the framework engine in bf16 with the one-pass z-score
   (inference.py:198-202).  The kernel engine computes in f32 either way, as
@@ -27,8 +33,9 @@
 
 from __future__ import annotations
 
+import copy
 import os
-from typing import List, Mapping, Optional
+from typing import List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -47,7 +54,9 @@ from ptbxl_torch.ops.kernels.fused_ecgcnn import (
 from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
 
-KERNEL_MAX_BATCH = int(os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH", "1024"))
+_MAX_BATCH_ENV = os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH")
+KERNEL_MAX_BATCH = int(_MAX_BATCH_ENV or 1024)  # 'highest': the crossover against cuDNN f32
+KERNEL_MAX_BATCH_BF16 = int(_MAX_BATCH_ENV or 16)  # 'default': the crossover against cuDNN bf16
 
 _ARCHS = ("ecgcnn", "multimodal")
 _ENGINES = ("auto", "framework", "kernel")
@@ -71,14 +80,12 @@ class Predictor:
         normalize: bool = True,
         data_parallel: bool = False,
         precision: str = "highest",
-        device: DeviceLike = None,
+        device: Union[DeviceLike, Sequence[DeviceLike]] = None,
     ):
-        """``state_dict`` is reference-layout (``params_io.load_checkpoint``)."""
+        """``state_dict`` is reference-layout (``params_io.load_checkpoint``).
+        ``device`` is one device, or with ``data_parallel`` a list of them."""
         if arch not in _ARCHS:
             raise ValueError(f"arch must be one of {_ARCHS}, got {arch!r}")
-        if data_parallel:
-            raise NotImplementedError(
-                "data_parallel=True comes with multi-GPU support, ROADMAP queue 1 item 8")
         if precision == "int8":
             raise NotImplementedError("precision='int8' comes with ROADMAP queue 1 item 9")
         if precision not in _PRECISIONS:
@@ -87,6 +94,19 @@ class Predictor:
         if engine not in _ENGINES:
             raise ValueError(
                 f"engine must be one of {_ENGINES + tuple(ENGINE_ALIASES)}, got {engine!r}")
+        devices = None
+        if data_parallel:
+            # one replica a device on the framework engine, the only engine
+            # the JAX Predictor shards; 'auto' resolves to it
+            if engine == "auto":
+                engine = "framework"
+            if engine != "framework":
+                raise ValueError("data_parallel currently supports engine='xla'")
+            devices = _device_list(device)
+            if chunk_size % len(devices):
+                raise ValueError(
+                    f"chunk_size {chunk_size} not divisible by {len(devices)} devices")
+            device = devices[0]
         self.device = resolve_device(device)
         self.classes = classes
         self.chunk_size = chunk_size
@@ -106,6 +126,10 @@ class Predictor:
                                 precision=precision, dtype=dtype)
         merge_state(self.model, state_dict, strict=True)
         self.model.to(self.device).eval()
+        self._replicas = None
+        if devices is not None:
+            self._replicas = [(self.device, self.model)] + [
+                (d, copy.deepcopy(self.model).to(d)) for d in devices[1:]]
         self._folded = self._weights = None
         if engine != "framework":
             fold = fold_multimodal if arch == "multimodal" else fold_bn_into_conv
@@ -122,8 +146,15 @@ class Predictor:
 
     def _use_kernel(self, batch: int) -> bool:
         if self.engine == "auto":
-            return batch <= KERNEL_MAX_BATCH
+            limit = KERNEL_MAX_BATCH if self.precision == "highest" else KERNEL_MAX_BATCH_BF16
+            return batch <= limit
         return self.engine == "kernel"
+
+    def _framework(self, model: torch.nn.Module, x: torch.Tensor,
+                   d: Optional[torch.Tensor]) -> torch.Tensor:
+        h = self._zscore(x) if self.normalize else x
+        logits = model(h, d) if self.arch == "multimodal" else model(h)
+        return torch.sigmoid(logits.float())
 
     @torch.no_grad()
     def _forward(self, x: torch.Tensor, d: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -134,9 +165,19 @@ class Predictor:
                                               weights=self._weights)
             return fused_ecgcnn_probs(x, self._folded, normalize=self.normalize,
                                       weights=self._weights)
-        h = self._zscore(x) if self.normalize else x
-        logits = self.model(h, d) if self.arch == "multimodal" else self.model(h)
-        return torch.sigmoid(logits.float())
+        return self._framework(self.model, x, d)
+
+    @torch.no_grad()
+    def _forward_replicas(self, x: torch.Tensor, d: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """One host chunk split in equal row blocks over the replicas, in order;
+        every replica's work is queued before the first result is read."""
+        n = len(self._replicas)
+        xs = x.chunk(n)
+        ds = d.chunk(n) if d is not None else [None] * n
+        outs = [self._framework(model, xi.to(dev), None if di is None else di.to(dev))
+                for (dev, model), xi, di in zip(self._replicas, xs, ds)]
+        return torch.cat([o.cpu() for o in outs])
 
     def __call__(self, signals, demo=None) -> np.ndarray:
         """signals: [N, 12, T] or [N, T, 12] raw (+ demo [N, 5] for multimodal)
@@ -158,6 +199,7 @@ class Predictor:
         if n == 0:
             return np.empty((0, self._num_labels), np.float32)
 
+        n_dev = len(self._replicas) if self._replicas else 1
         outs = []
         cs = self.chunk_size
         for i0 in range(0, n, cs):
@@ -171,10 +213,29 @@ class Predictor:
                 target = 1 << (real - 1).bit_length() if real > 1 else 1
             else:
                 target = real
+            if target % n_dev:  # the replicas take equal row blocks
+                target += n_dev - target % n_dev
             args = [chunk, demo[i0:i0 + cs]] if self.arch == "multimodal" else [chunk]
             if real < target:
                 args = [np.concatenate([a, np.repeat(a[-1:], target - real, axis=0)])
                         for a in args]
-            args = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in args]
-            outs.append(self._forward(*args)[:real].cpu().numpy())
+            args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+            if self._replicas:
+                probs = self._forward_replicas(*args)
+            else:
+                probs = self._forward(*[a.to(self.device) for a in args])
+            outs.append(probs[:real].cpu().numpy())
         return np.concatenate(outs, axis=0)
+
+
+def _device_list(device) -> List[torch.device]:
+    """The data-parallel devices: every visible GPU for ``None``, else the
+    device or list given (``["cpu", "cpu"]`` in the tests)."""
+    if device is None:
+        resolve_device(None)  # raises without a GPU
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("data_parallel needs at least one device")
+        return [resolve_device(d) for d in device]
+    return [resolve_device(device)]

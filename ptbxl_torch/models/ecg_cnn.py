@@ -14,7 +14,9 @@ parameters for 5 labels.  Submodule names follow the reference state dict
   ReLU -> MaxPool(2) differentiates through K6 (``ops/relu_pool.py``).
 * ``model.train()`` is JAX's ``train=True``: BatchNorm normalizes with the
   batch statistics and updates the running ones as flax does (biased
-  variance, ``ConvBlock._train_batch_norm``).
+  variance, ``ConvBlock._train_batch_norm``).  Under a data-parallel mesh
+  (``parallel/mesh.py::shard_model`` sets ``ConvBlock.sync_group``) the
+  statistics are the global batch's, as GSPMD makes them in JAX.
 * ``precision='highest'`` runs f32 convs and matmuls with TF32 off;
   ``dtype=torch.bfloat16`` computes in bf16 from the f32 parameters (the
   JAX ``dtype`` attribute).
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ptbxl_torch.ops.relu_pool import relu_max_pool2
+from ptbxl_torch.parallel.collectives import ColumnParallelLinear, all_reduce_sum
 from ptbxl_torch.utils.device import highest_precision
 
 PARITY_PRECISION = "highest"
@@ -81,14 +84,21 @@ def precision_scope(precision: Optional[str]):
 
 def dense(lin: nn.Linear, v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A Linear layer computed in ``dtype`` from its f32 parameters (flax ``dtype``):
-    the product is rounded to ``dtype``, then the bias is added, as flax does."""
-    return F.linear(v.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+    the product is rounded to ``dtype``, then the bias is added, as flax does.
+    A column-parallel layer computes its columns and gathers the rest."""
+    sharded = isinstance(lin, ColumnParallelLinear)
+    if sharded:
+        v = lin.copy_in(v)
+    y = F.linear(v.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+    return lin.gather(y) if sharded else y
 
 
 class ConvBlock(nn.Module):
     """Conv1d(k=15, SAME) -> BatchNorm -> ReLU -> MaxPool(2) on ``[B, C, T]``.
 
     ``conv_only``/``post`` expose the pre-BN conv activation, the Grad-CAM tap.
+    ``sync_group``: the data group whose global batch train-mode BatchNorm
+    normalizes with (None: this rank's batch).
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 15,
@@ -102,6 +112,7 @@ class ConvBlock(nn.Module):
         )
         self.pool = pool
         self.dtype = dtype
+        self.sync_group = None
 
     def conv_only(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.net[0]
@@ -119,12 +130,37 @@ class ConvBlock(nn.Module):
         ``max(0, E[a^2] - E[a]^2)``: the rounding differs, within the JAX
         parity tests' tolerances (tests/test_torch_train_step.py)."""
         bn = self.net[1]
+        if self.sync_group is not None:
+            return self._synced_batch_norm(a)
         with torch.no_grad():
             var, mean = torch.var_mean(a.float(), dim=(0, 2), correction=0)
-            m = bn.momentum
-            bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
-            bn.running_var.copy_((1.0 - m) * bn.running_var + m * var)
+            self._update_running(mean, var)
         return F.batch_norm(a, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        bn = self.net[1]
+        m = bn.momentum
+        bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1.0 - m) * bn.running_var + m * var)
+
+    def _synced_batch_norm(self, a: torch.Tensor) -> torch.Tensor:
+        """Train-mode BatchNorm over the data group's global (B, T): the f32
+        count and sums, then the centred sums, each summed over the group by
+        a differentiable all-reduce (whose backward sums too); the biased
+        variance; the running stats moved as above, the same on every rank.
+        Padded rows count as they do unsharded."""
+        bn = self.net[1]
+        af = a.float()
+        count = af.new_full((1,), float(af.shape[0] * af.shape[2]))
+        sums = all_reduce_sum(torch.cat([af.sum(dim=(0, 2)), count]), self.sync_group)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        d = af - mean[:, None]
+        var = all_reduce_sum((d * d).sum(dim=(0, 2)), self.sync_group) / n
+        self._update_running(mean.detach(), var.detach())
+        scale = bn.weight * torch.rsqrt(var + bn.eps)
+        return (d * scale[:, None] + bn.bias[:, None]).to(a.dtype)
 
     def post(self, a: torch.Tensor) -> torch.Tensor:
         bn = self.net[1]

@@ -14,7 +14,20 @@
   or ``per_batch`` (the multimodal task's unweighted batch mean,
   loop_demo.py:40-43).
 * ``train_one_epoch`` reads each step's loss one step late, so the host
-  queues the next step before it waits for the card.
+  queues the next step before it waits for the card; under
+  ``PTBXL_TORCH_PERF=1`` it reads every step's loss at once (the read waits
+  for the card, so the timer measures the step, not its launch) and prints
+  ``StepTimer.report("train")`` (loop.py:126-159).
+* ``check_numerics=True`` (the trainer's ``PTBXL_TORCH_CHECK_NUMERICS``)
+  raises ``FloatingPointError`` on a non-finite loss or gradient after the
+  backward and before the optimizer step, so the bad update is never
+  applied: one read of the card a step, only when it is on.
+* with a ``mesh`` (``parallel/mesh.py``) each rank takes its rows of the
+  global batch; the loss is ``sum(local bce * mask) / all_reduce(sum(mask))``
+  and the gradients are summed over the data group, so a padded row counts
+  the same wherever it falls; the reported loss is the global one.  The eval
+  step gathers probs and per-sample losses over the data group, so every
+  rank computes the same metrics.  Without a mesh nothing changes.
 
 A batch is a dict of tensors (``device_prefetch``) or numpy arrays; both are
 moved to the model's device.
@@ -26,12 +39,14 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ptbxl_torch.models.ecg_cnn import precision_scope
 from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
 from ptbxl_torch.training.metrics import compute_metrics
 from ptbxl_torch.training.train_state import TrainState
+from ptbxl_torch.utils.profiling import StepTimer, perf_enabled
 
 Batch = Dict[str, object]
 
@@ -61,7 +76,22 @@ def _logits(model: torch.nn.Module, b: Dict[str, torch.Tensor], multimodal: bool
     return model(x, b["demo"]) if multimodal else model(x)
 
 
-def make_train_step(multimodal: bool = False, normalize: str = "per_lead"
+def check_finite(model: torch.nn.Module, loss: torch.Tensor, step: int) -> None:
+    """Raise ``FloatingPointError`` naming ``step`` and the first parameter whose
+    gradient holds a NaN or inf (or the loss, if it does); one read of the card."""
+    grads = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+    ok = torch.stack([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for _, g in grads])
+    if bool(ok.all()):
+        return
+    ok = ok.tolist()
+    if not ok[0]:
+        raise FloatingPointError(f"non-finite loss {float(loss.detach())} at step {step}")
+    bad = next(n for (n, _), good in zip(grads, ok[1:]) if not good)
+    raise FloatingPointError(f"non-finite gradient of {bad} at step {step}")
+
+
+def make_train_step(multimodal: bool = False, normalize: str = "per_lead", mesh=None,
+                    check_numerics: bool = False
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, torch.Tensor]]:
     """Build ``step(state, batch) -> (state, loss)``; the state is updated in place.
 
@@ -70,14 +100,21 @@ def make_train_step(multimodal: bool = False, normalize: str = "per_lead"
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         model = state.model
-        b = _on(batch, _device_of(model))
+        b = _on(batch if mesh is None else mesh.local(batch), _device_of(model))
         model.train()
         with precision_scope(model.precision):
             logits = _logits(model, b, multimodal, normalize)
             mask = b["mask"]
-            loss = torch.sum(per_sample_bce(logits, b["y"]) * mask) / torch.sum(mask)
+            n_real = torch.sum(mask)
+            if mesh is not None:
+                dist.all_reduce(n_real, group=mesh.data_group)
+            loss = torch.sum(per_sample_bce(logits, b["y"]) * mask) / n_real
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if mesh is not None:
+                loss = mesh.all_reduce_grads(model, loss)
+            if check_numerics:
+                check_finite(model, loss, state.step)
             state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()
@@ -87,20 +124,24 @@ def make_train_step(multimodal: bool = False, normalize: str = "per_lead"
     return step
 
 
-def make_eval_step(multimodal: bool = False, normalize: str = "per_lead"
+def make_eval_step(multimodal: bool = False, normalize: str = "per_lead", mesh=None
                    ) -> Callable[[TrainState, Batch], Tuple[torch.Tensor, torch.Tensor]]:
-    """Build ``step(state, batch) -> (probs [B, L], per-sample loss [B])``, both f32."""
+    """Build ``step(state, batch) -> (probs [B, L], per-sample loss [B])``, both f32,
+    for the whole (global) batch."""
 
     @torch.no_grad()
     def step(state: TrainState, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         model = state.model
-        b = _on(batch, _device_of(model))
+        b = _on(batch if mesh is None else mesh.local(batch), _device_of(model))
         model.eval()
         with precision_scope(model.precision):
             # f32 at the boundary: the host metrics and CSV read these even
             # when the model computes in bf16
             logits = _logits(model, b, multimodal, normalize).float()
-        return torch.sigmoid(logits), per_sample_bce(logits, b["y"])
+        probs, losses = torch.sigmoid(logits), per_sample_bce(logits, b["y"])
+        if mesh is None:
+            return probs, losses
+        return mesh.gather_rows(probs), mesh.gather_rows(losses)
 
     return step
 
@@ -128,6 +169,7 @@ def train_one_epoch(
     desc: Optional[str] = None,
 ) -> Tuple[TrainState, float]:
     """One epoch -> (state, epoch train loss in the reference's aggregation mode)."""
+    timer = StepTimer() if perf_enabled() else None
     total = 0.0
     weight = 0.0
     pending = None  # (loss, n_real) of the previous step, read after the next is queued
@@ -144,12 +186,20 @@ def train_one_epoch(
 
     for batch in _maybe_tqdm(batches, desc):
         n_real = _n_real(batch["mask"])
+        if timer:  # timer mode: wait for every step, so the timer measures it
+            timer.start()
         state, loss = train_step(state, batch)
+        if timer:
+            settle((loss, n_real))  # float() waits for the step
+            timer.stop(float(n_real))
+            continue
         if pending is not None:
             settle(pending)
         pending = (loss, n_real)
     if pending is not None:
         settle(pending)
+    if timer:
+        print(timer.report("train"))
     return state, total / max(1.0, weight)
 
 

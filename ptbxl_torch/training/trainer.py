@@ -16,9 +16,23 @@ ADC cache, converted on the device) or any object with ``y`` [N, L],
 and a ``.meta.json`` sidecar with the AUPRC, optional early stopping
 (scripts/04:212-216), and a resume point: ``torch.save`` of the model,
 optimizer, scheduler, step, epoch, best AUPRC and epochs without
-improvement, written to a temp file and ``os.replace``d.  The model trains
-on its own device; multi-GPU, TensorBoard and the step timer come later
-(ROADMAP queue 1 items 8 and 11).
+improvement, written to a temp file and ``os.replace``d.
+
+Across ranks (``parallel/multihost.py``, e.g. under ``torchrun``) the data
+width is ``mesh_for_batch``'s: the largest rank count that divides the batch
+(trainer.py:38-46).  JAX can leave chips idle; launched processes cannot be
+dropped, so a width below the world size raises.  Every rank reads the same
+global batches (one seed) and takes its rows; only rank 0 writes the CSV,
+the best checkpoint, its sidecar and the resume point, and the others wait
+at a barrier.
+
+Opt-in switches (trainer.py:132-134, 166-177, 230-234):
+``PTBXL_TORCH_TB=<dir>`` writes ``train/bce`` and ``val/<metric>`` every
+epoch through a ``SummaryWriter`` under ``<dir>/<run_name>`` (a ``[WARN]``
+line when TensorBoard is not installed); ``PTBXL_TORCH_CHECK_NUMERICS=1``
+raises ``FloatingPointError`` on the first non-finite loss or gradient,
+before its update; ``PTBXL_TORCH_PERF=1`` prints each epoch's step timer
+(``training/loop.py``).
 """
 
 from __future__ import annotations
@@ -29,9 +43,11 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
 from ptbxl_torch.models.params_io import export_pth, save_npz, to_flax_variables
+from ptbxl_torch.parallel.mesh import Mesh, make_mesh, shard_model
 from ptbxl_torch.training.loop import (
     eval_one_epoch,
     make_eval_step,
@@ -40,6 +56,48 @@ from ptbxl_torch.training.loop import (
 )
 from ptbxl_torch.training.train_state import TrainState, create_train_state, large_batch_lr
 from ptbxl_torch.utils.csv_log import log_epoch_to_csv
+
+
+def data_width(batch_size: int, world_size: int) -> int:
+    """The largest rank count, at most ``world_size``, that divides ``batch_size``."""
+    for d in range(min(world_size, batch_size), 0, -1):
+        if batch_size % d == 0:
+            return d
+    return 1
+
+
+def report_data_width(batch_size: int) -> int:
+    """Print and return the data width ``train`` takes for ``batch_size``."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_data = data_width(batch_size, world)
+    print(f"[INFO] Data-parallel width: {n_data} (world size {world})")
+    return n_data
+
+
+def mesh_for_batch(batch_size: int) -> Optional[Mesh]:
+    """A data mesh over every rank of the process group, or None without one."""
+    if not dist.is_initialized():
+        return None
+    world = dist.get_world_size()
+    n_data = data_width(batch_size, world)
+    if n_data < world:
+        raise ValueError(
+            f"batch_size {batch_size} splits over at most {n_data} of the {world} ranks; "
+            f"launched processes cannot be left idle, so use a batch size divisible by {world}")
+    return make_mesh(n_data=n_data, n_model=1)
+
+
+def _tb_writer(run: "TrainRun"):
+    root = os.environ.get("PTBXL_TORCH_TB")
+    if not root:
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(os.path.join(root, run.run_name))
+    except Exception as e:  # tensorboard not installed: an optional logger
+        print(f"[WARN] TensorBoard requested but unavailable: {e}")
+        return None
 
 
 @dataclass
@@ -135,10 +193,15 @@ def train(run: TrainRun) -> TrainState:
               f"warmup {run.warmup_steps} steps)")
     elif run.lr_scaling != "none":
         raise ValueError(f"unknown lr_scaling {run.lr_scaling!r} (none|linear)")
+    check_numerics = os.environ.get("PTBXL_TORCH_CHECK_NUMERICS", "") not in ("", "0")
+    mesh = mesh_for_batch(run.batch_size)
+    writer = mesh is None or dist.get_rank() == 0  # the rank that writes files
+    if mesh is not None:
+        shard_model(run.model, mesh)
     device = next(run.model.parameters()).device
     state = create_train_state(run.model, lr, run.weight_decay, run.warmup_steps)
-    train_step = make_train_step(run.multimodal, run.normalize)
-    eval_step = make_eval_step(run.multimodal, run.normalize)
+    train_step = make_train_step(run.multimodal, run.normalize, mesh, check_numerics)
+    eval_step = make_eval_step(run.multimodal, run.normalize, mesh)
     # emit_adc ships int16 ADC and converts on the device (half the H2D
     # bytes), as the JAX trainer does; a dataset without the ADC cache (no
     # base_dir/df, e.g. an in-memory one) takes per-record reads and f32
@@ -146,6 +209,8 @@ def train(run: TrainRun) -> TrainState:
                             emit_adc=True)
     val_src = BatchSource(run.val_ds, run.batch_size, shuffle=False, seed=run.seed,
                           emit_adc=True)
+
+    tb = _tb_writer(run) if writer else None
 
     start_epoch = 0
     best_auprc = -1.0
@@ -183,27 +248,39 @@ def train(run: TrainRun) -> TrainState:
                                      desc=run.eval_desc)
         print(f"{run.val_print}:", val_metrics)
 
-        log_epoch_to_csv(run.metrics_csv, run.run_name, epoch + 1, train_loss, val_metrics,
-                         run.ckpt_path, run.config_path)
+        if writer:
+            log_epoch_to_csv(run.metrics_csv, run.run_name, epoch + 1, train_loss, val_metrics,
+                             run.ckpt_path, run.config_path)
         if run.progress is not None:
             run.progress(epoch + 1, train_loss, val_metrics)
+        if tb is not None:
+            tb.add_scalar("train/bce", train_loss, epoch + 1)
+            for k, v in val_metrics.items():
+                tb.add_scalar(f"val/{k}", float(v), epoch + 1)
+            tb.flush()
 
         auprc = float(val_metrics.get("auprc_macro", -1))
         improved = auprc > best_auprc
         if improved:
             best_auprc = auprc
             epochs_no_improve = 0
-            _export_best(run, state, auprc)
+            if writer:
+                _export_best(run, state, auprc)
             print(run.best_print(best_auprc, run.ckpt_path))
         else:
             epochs_no_improve += 1
 
         # the resume point, every epoch (the early-stop epoch included)
-        os.makedirs(os.path.dirname(resume) or ".", exist_ok=True)
-        _save_resume(resume, state, epoch + 1, best_auprc, epochs_no_improve)
+        if writer:
+            os.makedirs(os.path.dirname(resume) or ".", exist_ok=True)
+            _save_resume(resume, state, epoch + 1, best_auprc, epochs_no_improve)
+        if mesh is not None:
+            dist.barrier()
 
         if (not improved and run.early_stop_patience is not None
                 and epochs_no_improve >= run.early_stop_patience):
             print("[INFO] Early stopping.")
             break
+    if tb is not None:
+        tb.close()
     return state

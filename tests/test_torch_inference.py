@@ -123,7 +123,6 @@ def test_no_cuda_raises_without_device(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"precision": "int8"}, "item 9"),
-    ({"data_parallel": True}, "item 8"),
 ])
 def test_later_features_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

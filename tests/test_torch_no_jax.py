@@ -53,6 +53,9 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.cli.prepare_data, ptbxl_torch.cli.printsize\n"
         "import ptbxl_torch.cli.make_demo_pack, ptbxl_torch.cli.save_demo_ecg\n"
         "import ptbxl_torch.cli.save_demo_multimodal\n"
+        "import ptbxl_torch.utils.profiling, ptbxl_torch.ops.signal\n"
+        "import ptbxl_torch.parallel.collectives, ptbxl_torch.parallel.mesh\n"
+        "import ptbxl_torch.parallel.multihost, ptbxl_torch.parallel.dryrun\n"
         f"banned = {FORBIDDEN + ABSENT_ON_GPU + DRAWN!r}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(bad)\n"
@@ -109,7 +112,10 @@ def test_port_file_list_is_complete():
                  "ptbxl_torch/cli/plot_baseline_only.py", "ptbxl_torch/cli/plot_mm_only.py",
                  "ptbxl_torch/cli/prepare_data.py", "ptbxl_torch/cli/printsize.py",
                  "ptbxl_torch/cli/make_demo_pack.py", "ptbxl_torch/cli/save_demo_ecg.py",
-                 "ptbxl_torch/cli/save_demo_multimodal.py"):
+                 "ptbxl_torch/cli/save_demo_multimodal.py", "ptbxl_torch/utils/profiling.py",
+                 "ptbxl_torch/ops/signal.py", "ptbxl_torch/parallel/collectives.py",
+                 "ptbxl_torch/parallel/mesh.py", "ptbxl_torch/parallel/multihost.py",
+                 "ptbxl_torch/parallel/dryrun.py"):
         assert path in PORT_FILES, path
 
 

@@ -131,7 +131,6 @@ def test_kernel_engine_reaches_k3(pack, monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"precision": "int8"}, "item 9"),
-    ({"data_parallel": True}, "item 8"),
 ])
 def test_later_features_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
