@@ -28,7 +28,13 @@ them (09, 10, 14-17, 00's pack and exports, 02, printsize, Grad-CAM CLIs 11 and
 the step: the step timer, a trace, the numerics switch, the signal ops and
 equal-seed epochs; then the data-parallel path: a 1-rank NCCL group, two
 gloo ranks on the one card running ``dryrun_multichip(2)`` and a trainer
-epoch on that tree, and ``Predictor(data_parallel=True)``), checks them against the golden
+epoch on that tree, and ``Predictor(data_parallel=True)``; then the int8 path,
+each int8 layer's ``torch._int_mm`` exactly against its plain version, the
+int8 ``Predictor`` and the 519-signal battery gated, the card against the
+CPU, ms and memory at 8192 beside framework bf16 and K4; then the serving
+export, every artifact variant exported with ``torch.export``, reloaded and
+held against its ``Predictor``, K1/K2/K3 launched from the kernel-engine
+artifacts), checks them against the golden
 outputs, the demo-pack parity gate, the JAX scripts' CSV schemas, ``Predictor``,
 ``GradCAM``, ``compute_metrics`` and ``per_class_scores``, and times the kernels, the
 train step and the epoch beside their plain versions, the framework (cuDNN,
@@ -1800,6 +1806,213 @@ def phase_pipeline() -> dict:
             "e2e": e2e}
 
 
+INT8_B = 8192  # the int8 forward's timing batch, the bench's int8 row
+
+
+def _timed_with_memory(fn, dev: torch.device) -> dict:
+    """Device ms of ``fn`` (median of 5) and the peak device memory it takes."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = time_ms(fn, reps=5)
+    return {"ms": ms, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def phase_int8(dev: torch.device, x_raw: torch.Tensor) -> dict:
+    """The int8 path (``ops/quant.py``) on the card, every gate raising:
+
+    * each layer's int8 conv (im2col + ``torch._int_mm``) against its plain
+      version (exact f64 product) on that layer's int8 input (the four layers
+      quantized, layer 0's K padded 180 -> 184), at B = 1 and 64: no value may
+      differ; and the epilogue's int32 -> bf16 on the card against the CPU's;
+    * the ``Predictor`` gates on the demo packs against the f32 ``highest``
+      framework path: robust default < 4e-2, demo-calibrated < 5e-3, the
+      multimodal and AF models < 4e-2;
+    * the 519-signal battery (``quant_eval``) on the ECGCNN default against
+      ``BATTERY_GATE``; the multimodal and AF models' reports beside it;
+    * the card's int8 probs against the CPU's int8 path with the same q-params
+      (the demo pack and 64 battery records), gated at 5e-3;
+    * ms and peak memory of the int8 forward at ``INT8_B`` beside the
+      framework bf16 forward and K4's hybrid row (the bench's rows).
+    """
+    from ptbxl_torch import bench
+    from ptbxl_torch.inference import Predictor
+    from ptbxl_torch.models.params_io import load_checkpoint
+    from ptbxl_torch.ops import quant as q8, quant_eval as qe
+    from ptbxl_torch.ops.kernels import fused_ecgcnn as k2
+    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
+
+    t_phase = time.perf_counter()
+    state, _ = load_checkpoint(CKPT)
+    out = {"phase": "int8", "shipped_layers": {a: list(q8.default_int8_layers(a))
+                                               for a in ("ecgcnn", "multimodal")}}
+    # each layer's conv on its own int8 input: the _int_mm route vs the plain version
+    q_all = q8.quantize_model(state, int8_layers=(0, 1, 2, 3), device=dev)
+    folded = k2.fold_bn_into_conv({k: v.to(dev) for k, v in state.items()})
+    with torch.no_grad():
+        taps = q8.folded_layer_inputs(folded, zscore_per_lead_batch(x_raw[:64]))
+        conv = {}
+        for i in range(4):
+            xq = q8.quantize_act(taps[i], q_all[f"sx{i}"].to(dev))
+            wm = q8.int8_weight_matrix(q_all[f"w{i}"].to(dev))
+            for b in (1, 64):
+                y = q8.int8_conv1d(xq[:b], wm)
+                differ = int((y != q8.int8_conv1d_plain(xq[:b], wm)).sum())
+                bf16_differ = int((y.to(torch.bfloat16).cpu() != y.cpu().to(torch.bfloat16)).sum())
+                conv[f"layer{i} B={b} K={wm.shape[1]}"] = {
+                    "values_differing": differ, "bf16_values_differing_from_cpu": bf16_differ,
+                    "max_abs_int32": int(y.abs().max())}
+                if differ or bf16_differ:
+                    raise AssertionError(f"int8 conv layer {i} B={b}: {differ} values differ "
+                                         f"from the plain version, {bf16_differ} bf16 values "
+                                         "from the CPU's conversion")
+        del taps
+    out["int8_conv"] = conv
+
+    # the Predictor gates on the three checkpoints
+    sigs = demo_signals()
+    sigs_mm, demos_mm = mm_demo_pack()
+    ref = Predictor.from_checkpoint(CKPT, engine="framework")(sigs)
+    q_robust = q8.quantize_model(state, device=dev)
+    p_q = Predictor.from_checkpoint(CKPT, precision="int8", qparams=q_robust)
+    got = p_q(sigs)
+    p_demo = Predictor.from_checkpoint(CKPT, precision="int8",
+                                       calib_signals=q8.demo_pack_signals())
+    ref_mm = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", engine="framework")(
+        sigs_mm, demo=demos_mm)
+    p_mm = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", precision="int8")
+    ref_af = Predictor.from_checkpoint(CKPT_AF, num_labels=1, engine="framework")(sigs)
+    p_af = Predictor.from_checkpoint(CKPT_AF, num_labels=1, precision="int8")
+    out["predictor_vs_highest"] = {
+        "ecgcnn_robust": gate("int8 Predictor robust", float(np.abs(got - ref).max()), 4e-2),
+        "ecgcnn_demo_calibrated": gate("int8 Predictor demo-calibrated",
+                                       float(np.abs(p_demo(sigs) - ref).max()), 5e-3),
+        "multimodal": gate("int8 Predictor multimodal",
+                           float(np.abs(p_mm(sigs_mm, demo=demos_mm) - ref_mm).max()), 4e-2),
+        "af": gate("int8 Predictor AF", float(np.abs(p_af(sigs) - ref_af).max()), 4e-2),
+    }
+    out["engine"] = p_q.engine
+
+    # the battery: gated on the ECGCNN default, reported for the other two
+    bat = qe.make_battery()
+    keys = ("n", "num_decisions", "int8_layers", "max", "p99", "p50", "mean", "flips",
+            "flip_rate", "flip_margin")
+    rep = qe.quant_accuracy_report(state, "ecgcnn", signals=bat, q=q_robust, device=dev)
+    if not qe.passes_battery_gate(rep):
+        raise AssertionError(f"int8 battery {rep} breaches {qe.BATTERY_GATE}")
+    state_mm, _ = load_checkpoint(CKPT_MM, arch="multimodal")
+    state_af, _ = load_checkpoint(CKPT_AF)
+    rep_mm = qe.quant_accuracy_report(state_mm, "multimodal", signals=bat, device=dev)
+    rep_af = qe.quant_accuracy_report(state_af, "ecgcnn", signals=bat, num_labels=1, device=dev)
+    out["battery"] = {"gate": qe.BATTERY_GATE,
+                      "ecgcnn": {k: rep[k] for k in keys},
+                      "multimodal_reported": {k: rep_mm[k] for k in keys},
+                      "af_reported": {k: rep_af[k] for k in keys}}
+
+    # the card against the CPU's int8 path with the same q-params
+    p_cpu = Predictor.from_checkpoint(CKPT, precision="int8", qparams=q_robust, device="cpu")
+    x_cmp = np.concatenate([sigs, bat[:64]])
+    out["card_vs_cpu_max_abs"] = gate("int8 card vs CPU", float(np.abs(p_q(x_cmp)
+                                                                       - p_cpu(x_cmp)).max()), 5e-3)
+
+    # times at the bench's batch, beside framework bf16 and the hybrid row (K4)
+    times = {}
+    with torch.no_grad():
+        for name, path, dtype_name, wire in (("int8", "int8", "int8", torch.bfloat16),
+                                             ("framework_bf16", "framework", "bf16", torch.float32),
+                                             ("hybrid_k4", "hybrid", "bf16", torch.float32)):
+            fwd = bench.build_forward(path, dtype_name, dev)
+            xb = bench._random_batch(INT8_B, wire, dev)
+            times[name] = _timed_with_memory(lambda: fwd(xb), dev)
+            times[name]["rps"] = INT8_B / (times[name]["ms"] / 1e3)
+            del xb, fwd
+    out["times_b8192"] = times
+    out["int8_chunk_records"] = q8.chunk_records(T_FULL, q_robust, q_robust["int8_layers"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_serving(dev: torch.device, work: str, x_raw: torch.Tensor) -> dict:
+    """The serving export (``ptbxl_torch/serving.py``) on the card: export,
+    then a fresh ``ServingModel`` of each artifact against the ``Predictor``
+    of the same engine and precision (int8 on the same q-params) on the demo
+    pack and 64 raw requests, within 2e-6: ECGCNN ``highest``, ``default``,
+    ``int8``, ``with_cam`` (probs against ``highest``, CAMs against
+    ``GradCAM.multi`` within 1e-5) and the kernel engine (batch 8, chunked
+    and padded), the multimodal model's ``highest`` and kernel engine.  K1,
+    K2 and K3 are counted from 0 around the kernel-engine artifacts' calls
+    and must have launched.  Export seconds and host ms a call (N = 7)."""
+    from ptbxl_torch.inference import Predictor
+    from ptbxl_torch.interpret.grad_cam import GradCAM
+    from ptbxl_torch.models.factory import load_ecgcnn
+    from ptbxl_torch.models.params_io import load_checkpoint
+    from ptbxl_torch.ops import quant as q8
+    from ptbxl_torch.ops.kernels import fused_ecgcnn as k2, zscore as k1
+    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
+    from ptbxl_torch.serving import ServingModel, export_serving_artifact
+
+    sigs = demo_signals()
+    sigs_mm, demos_mm = mm_demo_pack()
+    reqs = x_raw[:64].transpose(1, 2).cpu().numpy()  # [64, 12, T], the reference layout
+    reqs_demo = np.tile(demos_mm, (10, 1))[:64]
+    state, _ = load_checkpoint(CKPT)
+    q = q8.quantize_model(state, device=dev)
+    cases = (("highest", CKPT, {}), ("default", CKPT, {"precision": "default"}),
+             ("int8", CKPT, {"precision": "int8", "qparams": q}),
+             ("with_cam", CKPT, {"with_cam": True}), ("kernel", CKPT, {"engine": "kernel"}),
+             ("multimodal_highest", CKPT_MM, {"arch": "multimodal"}),
+             ("multimodal_kernel", CKPT_MM, {"arch": "multimodal", "engine": "kernel"}))
+    rows, launches = {}, {"zscore": 0, "fused_ecgcnn": 0, "fused_multimodal": 0}
+    for name, ckpt, kw in cases:
+        path = os.path.join(work, f"{name}.ptbxlpt")
+        t0 = time.perf_counter()
+        export_serving_artifact(ckpt, path, **kw)
+        export_s = time.perf_counter() - t0
+        model = ServingModel(path)
+        mm = kw.get("arch") == "multimodal"
+        pred = Predictor.from_checkpoint(
+            ckpt, arch=kw.get("arch", "ecgcnn"), engine=kw.get("engine", "framework"),
+            precision=kw.get("precision", "highest"), qparams=kw.get("qparams"))
+        inputs = [((sigs_mm,), {"demo": demos_mm}), ((reqs,), {"demo": reqs_demo})] if mm \
+            else [((sigs,), {}), ((reqs,), {})]
+        kernel = kw.get("engine") == "kernel"
+        if kernel:
+            k1.launches = k2.launches = k2.launches_mm = 0
+        outs = [model(*a, **k) for a, k in inputs]
+        if kernel:
+            torch.cuda.synchronize()
+            launches["zscore"] += k1.launches
+            launches["fused_multimodal" if mm else "fused_ecgcnn"] += (
+                k2.launches_mm if mm else k2.launches)
+        probs = [o[0] if model.with_cam else o for o in outs]
+        err = max(float(np.abs(p - pred(*a, **k)).max()) for p, (a, k) in zip(probs, inputs))
+        row = {"export_s": export_s, "max_abs_err_vs_predictor": gate(
+            f"serving {name} vs Predictor", err, 2e-6),
+               "meta": {k: model.meta[k] for k in ("precision", "engine", "batch_size",
+                                                   "platforms", "int8_layers")}}
+        if model.with_cam:
+            cam_model, _ = load_ecgcnn(CKPT)
+            cam = GradCAM(cam_model, signal_length=T_FULL, norm_first=False, eps=1e-9)
+            cam_err = 0.0
+            for (a, _), o in zip(inputs, outs):
+                x = torch.from_numpy(np.ascontiguousarray(a[0].transpose(0, 2, 1))).to(dev)
+                _, want = cam.multi(zscore_per_lead_batch(x), range(5))
+                cam_err = max(cam_err, float(np.abs(o[1] - want.transpose(0, 1).cpu().numpy())
+                                             .max()))
+            row["cam_max_abs_err_vs_grad_cam"] = gate(f"serving {name} CAMs", cam_err, 1e-5)
+        if not all(np.isfinite(p).all() and p.shape == (len(a[0]), 5)
+                   for p, (a, _) in zip(probs, inputs)):
+            raise AssertionError(f"serving {name}: bad output {[p.shape for p in probs]}")
+        t0 = time.perf_counter()
+        model(*inputs[0][0], **inputs[0][1])
+        row["call_ms_n7"] = (time.perf_counter() - t0) * 1e3
+        rows[name] = row
+        os.remove(path)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the kernel-engine artifacts launched no {name} kernel")
+    return {"phase": "serving", "launches": launches, "artifacts": rows}
+
+
 K4_KERNELS = ("zscore", "wgmma_conv_block", "sums_tail")  # the bf16 route's own kernels
 
 
@@ -2360,6 +2573,12 @@ def main(argv=None) -> int:
     pipe_info = phase_pipeline()
     emit(pipe_info)
 
+    # -- phase 9: the int8 path and the serving export ------------------------
+    emit(phase_int8(dev, x_raw))
+    with tempfile.TemporaryDirectory() as work:
+        serving_info = phase_serving(dev, work, x_raw)
+    emit(serving_info)
+
     big = times[BIG]
     one = times[1]
     sources = {
@@ -2380,6 +2599,8 @@ def main(argv=None) -> int:
                for name in sources}
     by_path["zscore"].update(bench_hybrid_row=hybrid_info["launches"]["zscore"],
                              crossover=crossover_k1, predictor_default=default_k1)
+    for name in sources:  # K1's stats, K2 and K3 inside the exported kernel-engine programs
+        by_path[name]["serving_kernel_artifact"] = serving_info["launches"][name]
     kernels = []
     for name, (src, replaces, err) in sources.items():
         t5, t1 = big[name], one[name]

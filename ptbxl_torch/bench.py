@@ -15,11 +15,16 @@ Rows (``bench.py`` line numbers):
   two-pass z-score, TF32 off), ``framework`` bf16 (``precision='default'``:
   bf16 compute, the one-pass z-score, f32 wire), ``bf16_act`` (bf16 wire and
   activations), ``kernel`` (K2, f32) and ``hybrid`` (K4, bf16; ``bench.py``'s
-  ``block_b=16`` has no counterpart on the card), each gated by
-  ``_parity_check`` (:231) and naming the gate in ``parity_gate``.  Headline
-  mode runs the rows that can win on the card, as ``bench.py``'s runs only
-  the configurations that can win (:361-368): ``bf16_act`` at 16384 and the
-  hybrid at 8192 (the int8 rows are not ported yet).
+  ``block_b=16`` has no counterpart on the card) and ``int8`` (the
+  post-training int8 model of ``ops/quant.py`` with its shipped layer set and
+  robust calibration, bf16 wire; :313), each gated by ``_parity_check``
+  (:231) and naming the gate in ``parity_gate``: the int8 row at the
+  battery's max 4e-2 (``battery_max``, :385, :413-418), the others at 5e-3.
+  Each row on the card also records its peak device memory.  Headline mode
+  runs the rows that can win on the card, as ``bench.py``'s runs only the
+  configurations that can win (:361-368): ``bf16_act`` at 16384 and the
+  hybrid at 8192.  The int8 row, which can win on the TPU, runs under
+  ``--full`` alone: on the H100 it is the slowest bulk row but f32 (PERF.md).
 * the pipeline rows, which read the data layer on a synthetic PTB-XL tree
   (``ptbxl_torch/tools/synthetic_ptbxl.py``, 2048 records of [12, 5000],
   made once under the temp directory): ``bench_pipeline_stages`` (:1130,
@@ -31,7 +36,12 @@ Rows (``bench.py`` line numbers):
   z-score and the bf16 forward, full epochs timed with one sync at the end).
   They are measurements, not guarded by the regression gate.
 * ``bench_multimodal`` (:430), bf16 at 12288 with its own 5e-3 parity gate on
-  ``data/demo/multimodal``; ``bench_demo_latency`` (:520): forward + Grad-CAM
+  ``data/demo/multimodal``, and the int8 backbone at 12288 gated at 4e-2
+  (``battery_max``, :488-492); ``bench_ceiling`` (:901): the shipping int8
+  model decomposed by block (progressive prefixes: z-score, + block 0..3,
+  + tail, at 11264), each block bounded by the H100's data-sheet peaks (dense
+  int8 and bf16 tensor-core rates, HBM bandwidth), beside that bound
+  ratcheted to its measurement; ``bench_demo_latency`` (:520): forward + Grad-CAM
   of one record, one class and all 5 (``GradCAM.multi``); ``bench_train_step``
   (:605) f32 at 256 and bf16 at 256, 1024 and 4096; ``bench_train_phases``
   (:674): forward, forward + backward and the full step, bf16 at 256 and 4096.
@@ -92,7 +102,8 @@ MM_EXTRA_FLOPS_PER_REC = 2 * 5 * 64 + 2 * 64 * 64 + 2 * 64 * 512
 MM_FWD_FLOPS_PER_REC = FWD_FLOPS_PER_REC + MM_EXTRA_FLOPS_PER_REC
 
 # H100 SXM dense peaks (NVIDIA data sheet), at the full 700 W power limit
-H100_PEAKS = {"f32": 67e12, "bf16": 989e12}
+H100_PEAKS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12, "bytes": 3.35e12}
+INT8_TOL = 4e-2  # the int8 rows' gate: the 519-signal battery's max (quant_eval.BATTERY_GATE)
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
 
@@ -143,10 +154,17 @@ class Clock:
 
 
 def _mfu(rps: float, flops_per_rec: float, peak_key: str, on_card: bool) -> Tuple[float, Optional[float]]:
-    """(TFLOP/s, % of the H100 peak or None off the card)."""
+    """(TFLOP/s, % of the H100 peak or None off the card).  ``int8``: the
+    shipping layer set's convs against the int8 peak, the rest against bf16."""
     tflops = rps * flops_per_rec / 1e12
     if not on_card:
         return tflops, None
+    if peak_key == "int8":
+        from ptbxl_torch.ops.quant import default_int8_layers
+
+        int8_f = sum(CONV_FLOPS_PER_REC[i] for i in default_int8_layers("ecgcnn"))
+        bound_s = int8_f / H100_PEAKS["int8"] + (flops_per_rec - int8_f) / H100_PEAKS["bf16"]
+        return tflops, 100.0 * bound_s * rps
     return tflops, 100.0 * tflops * 1e12 / H100_PEAKS[peak_key]
 
 
@@ -172,6 +190,15 @@ def build_forward(path: str, dtype_name: str, device: torch.device) -> Forward:
     from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
     from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
 
+    if path == "int8":
+        from ptbxl_torch.ops.quant import (make_quantized_forward, quantize_model, split_meta,
+                                           to_device)
+
+        state, _ = load_checkpoint(CKPT)
+        arrs, n_blocks, layers = split_meta(quantize_model(state, arch="ecgcnn", device=device))
+        fwd = make_quantized_forward(n_blocks, layers, arch="ecgcnn")
+        arrs = to_device(arrs, device)
+        return lambda x: fwd(arrs, x)
     if path in ("kernel", "hybrid"):
         state, _ = load_checkpoint(CKPT)
         folded = k2.fold_bn_into_conv({k: v.to(device) for k, v in state.items()})
@@ -210,6 +237,7 @@ def inference_configs(full: bool) -> List[Tuple[str, str, str, List[int]]]:
             ("framework", "highest", "f32", [512, 2048]),
             ("framework", "default", "bf16", [512, 2048, 8192]),
             ("framework", "default", "bf16_act", [8192, 16384]),
+            ("int8", "int8", "int8", [8192, 11264, 12288, 16384]),
             ("kernel", "highest", "f32", [512, 2048]),
             ("hybrid", "default", "bf16", [8192]),
         ]
@@ -224,18 +252,22 @@ def inference_configs(full: bool) -> List[Tuple[str, str, str, List[int]]]:
 def inference_row(path: str, precision: str, dtype_name: str, batch: int, forward: Forward,
                   parity: Tuple[bool, float], clock: Clock, iters: int = 20) -> dict:
     """One row of the inference table: records/s of ``forward`` at ``batch``."""
-    wire = torch.bfloat16 if dtype_name == "bf16_act" else torch.float32
+    wire = torch.bfloat16 if dtype_name in ("bf16_act", "int8") else torch.float32
     x = _random_batch(batch, wire, clock.device)
+    if clock.cuda:
+        torch.cuda.reset_peak_memory_stats(clock.device)
     with torch.no_grad():
         ms = clock.ms(lambda: forward(x), _iters(iters))
     rps = batch / (ms / 1e3)
-    tflops, mfu = _mfu(rps, FWD_FLOPS_PER_REC, "f32" if dtype_name == "f32" else "bf16",
-                       clock.cuda)
+    peak = {"f32": "f32", "int8": "int8"}.get(dtype_name, "bf16")
+    tflops, mfu = _mfu(rps, FWD_FLOPS_PER_REC, peak, clock.cuda)
     ok, worst = parity
+    gate = ({"name": "battery_max", "tol": INT8_TOL} if path == "int8"
+            else {"name": "demo_pack_parity", "tol": PARITY_TOL})
     return dict(path=path, precision=precision, dtype=dtype_name, batch=batch, ms=ms, rps=rps,
-                prob_err=worst, parity_ok=ok,
-                parity_gate={"name": "demo_pack_parity", "tol": PARITY_TOL},
-                tflops=tflops, mfu_pct=mfu)
+                prob_err=worst, parity_ok=ok, parity_gate=gate, tflops=tflops, mfu_pct=mfu,
+                peak_mem_gb=(torch.cuda.max_memory_allocated(clock.device) / 1e9
+                             if clock.cuda else None))
 
 
 def bench_inference(full: bool, clock: Clock, failures: list) -> Tuple[Optional[dict], list]:
@@ -245,7 +277,8 @@ def bench_inference(full: bool, clock: Clock, failures: list) -> Tuple[Optional[
         try:
             forward = build_forward(path, dtype_name, clock.device)
             with torch.no_grad():
-                parity = parity_check(forward, reference, clock.device)
+                parity = parity_check(forward, reference, clock.device,
+                                      INT8_TOL if path == "int8" else PARITY_TOL)
         except Exception as e:  # noqa: BLE001 -- recorded, and the exit code says so
             parity, forward = None, e
         for bs in batches:
@@ -255,7 +288,7 @@ def bench_inference(full: bool, clock: Clock, failures: list) -> Tuple[Optional[
                     raise forward
                 row = inference_row(path, precision, dtype_name, bs, forward, parity, clock)
                 if not row["parity_ok"]:
-                    row["error"] = f"parity {row['prob_err']:.3e} > {PARITY_TOL}"
+                    row["error"] = f"parity {row['prob_err']:.3e} > {row['parity_gate']['tol']}"
             except Exception as e:  # noqa: BLE001
                 row = dict(path=path, precision=precision, dtype=dtype_name, batch=bs,
                            error=f"{type(e).__name__}: {e}"[:500])
@@ -270,36 +303,54 @@ def bench_inference(full: bool, clock: Clock, failures: list) -> Tuple[Optional[
 
 # -- the other rows -------------------------------------------------------------
 
-def bench_multimodal(clock: Clock, batch_size: int = 12288, iters: int = 10) -> dict:
-    """FiLM multimodal bf16 records/s (bf16 activations, the one-pass z-score),
-    gated against the f32 multimodal path on the multimodal demo pack."""
+def bench_multimodal(clock: Clock, batch_size: int = 12288, iters: int = 10,
+                     precision: str = "default") -> dict:
+    """FiLM multimodal records/s: bf16 activations and the one-pass z-score,
+    or with ``precision='int8'`` the quantized backbone (``ops/quant.py``,
+    the multimodal layer set, robust calibration); gated against the f32
+    multimodal path on the multimodal demo pack at 5e-3, int8 at 4e-2."""
     from ptbxl_torch.models.factory import load_multimodal
     from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
 
     dev = clock.device
-    model, _ = load_multimodal(CKPT_MM, device=dev, precision="default", dtype=torch.bfloat16)
     ref, _ = load_multimodal(CKPT_MM, device=dev, precision="highest")
     files = sorted(glob.glob(os.path.join(DEMO_MM, "*.npz")))
     packs = [np.load(f, allow_pickle=True) for f in files]
     xd = torch.from_numpy(np.stack([z["ecg"].T for z in packs])).to(dev)
     dd = torch.from_numpy(np.stack([z["demo"] for z in packs]).astype(np.float32)).to(dev)
+    if precision == "int8":
+        from ptbxl_torch.models.params_io import load_checkpoint
+        from ptbxl_torch.ops.quant import (make_quantized_forward, quantize_model, split_meta,
+                                           to_device)
 
-    def forward(x, d):
-        h = zscore_per_lead_batch_onepass(x).to(torch.bfloat16)
-        return torch.sigmoid(model(h, d).float())
+        state, _ = load_checkpoint(CKPT_MM, arch="multimodal")
+        arrs, n_blocks, layers = split_meta(quantize_model(state, arch="multimodal", device=dev))
+        qf = make_quantized_forward(n_blocks, layers, arch="multimodal")
+        arrs = to_device(arrs, dev)
+        tol, gate = INT8_TOL, "battery_max"
+
+        def forward(x, d):
+            return qf(arrs, x, d)
+    else:
+        model, _ = load_multimodal(CKPT_MM, device=dev, precision="default", dtype=torch.bfloat16)
+        tol, gate = PARITY_TOL, "demo_pack_parity_multimodal"
+
+        def forward(x, d):
+            h = zscore_per_lead_batch_onepass(x).to(torch.bfloat16)
+            return torch.sigmoid(model(h, d).float())
 
     with torch.no_grad():
         worst = float((forward(xd, dd) - torch.sigmoid(ref(zscore_per_lead_batch(xd), dd))).abs().max())
-        if worst > PARITY_TOL:
-            raise AssertionError(f"multimodal bf16 parity {worst:.3e} > {PARITY_TOL}")
+        if worst > tol:
+            raise AssertionError(f"multimodal {precision} parity {worst:.3e} > {tol}")
         b = _n(batch_size)
         x = _random_batch(b, torch.bfloat16, dev)
         d = torch.rand(b, 5, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
         ms = clock.ms(lambda: forward(x, d), _iters(iters))
     rps = b / (ms / 1e3)
     tflops, mfu = _mfu(rps, MM_FWD_FLOPS_PER_REC, "bf16", clock.cuda)
-    return {"batch": b, "ms": ms, "rps": rps, "prob_err": worst, "parity_ok": True,
-            "parity_gate": {"name": "demo_pack_parity_multimodal", "tol": PARITY_TOL},
+    return {"precision": precision, "batch": b, "ms": ms, "rps": rps, "prob_err": worst,
+            "parity_ok": True, "parity_gate": {"name": gate, "tol": tol},
             "tflops": tflops, "mfu_pct": mfu}
 
 
@@ -399,6 +450,81 @@ def bench_train_phases(clock: Clock, batch_size: int, dtype_name: str = "bf16",
     out["fwd_mfu_pct"] = _mfu(rps["fwd"], FWD_FLOPS_PER_REC, dtype_name, clock.cuda)[1]
     out["fwdbwd_mfu_pct"] = _mfu(rps["fwdbwd"], TRAIN_FLOPS_PER_REC, dtype_name, clock.cuda)[1]
     return out
+
+
+def bench_ceiling(clock: Clock, batch_size: int = 11264, iters: int = 5) -> dict:
+    """The shipping int8 model's attainable ceiling on this card (``bench_ceiling``, :901).
+
+    A per-block decomposition by progressive prefixes, each timed at
+    ``batch_size`` in the forward's own chunks of records: P0 the one-pass
+    z-score, P1..P4 plus blocks 0..3 (``quant._conv_stack``), P5 the whole
+    forward (mean, proj, head); a block's time is the difference of its
+    prefixes.  Each block is bounded by this card's data-sheet peaks: its
+    conv operations over the dense int8 (an int8 layer) or bf16 rate, or its
+    input read once and its output written once (int8 where the consumer is
+    int8, else bf16; the z-score reads the bf16 wire and writes bf16) over
+    the HBM rate, whichever is longer: ``bound_us``, and
+    ``analytic_ceiling_rps`` is 1 / their sum.  ``ratcheted_bound_us`` is
+    the least of that bound and the measurement (a measurement is
+    attainable), and ``ceiling_rps`` 1 / their sum, as ``bench.py`` ratchets.
+    """
+    from ptbxl_torch.models.params_io import load_checkpoint
+    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch_onepass
+    from ptbxl_torch.ops.quant import (_conv_stack, chunk_records, make_quantized_forward,
+                                       quantize_model, split_meta, to_device)
+
+    dev = clock.device
+    state, _ = load_checkpoint(CKPT)
+    arrs, n_blocks, layers = split_meta(quantize_model(state, arch="ecgcnn", device=dev))
+    arrs = to_device(arrs, dev)
+    full = make_quantized_forward(n_blocks, layers, arch="ecgcnn")
+    b = _n(batch_size)
+    x = _random_batch(b, torch.bfloat16, dev)
+    n = chunk_records(T_FULL, arrs, layers)
+
+    def prefix(k):
+        if k == n_blocks + 1:
+            return lambda: full(arrs, x)
+
+        def run():
+            for xc in x.split(n):
+                h = zscore_per_lead_batch_onepass(xc)
+                if k:
+                    _conv_stack(arrs, h, k, layers)
+                else:
+                    h.to(torch.bfloat16)  # block 0's bf16 operand
+        return run
+
+    with torch.no_grad():
+        per_rec = [clock.ms(prefix(k), _iters(iters)) / 1e3 / b for k in range(n_blocks + 2)]
+    names = ["zscore"] + [f"block{i}" for i in range(n_blocks)] + ["tail"]
+    meas = [per_rec[0]] + [max(per_rec[k + 1] - per_rec[k], 1e-12)
+                           for k in range(n_blocks + 1)]
+    cins, couts = [12, 32, 64, 128], [32, 64, 128, 256]
+    bounds = [(T_FULL * LEADS * (2 + 2) / H100_PEAKS["bytes"], "memory")]
+    for i in range(n_blocks):
+        t_in = T_FULL >> i
+        rate = H100_PEAKS["int8" if i in layers else "bf16"]
+        compute = CONV_FLOPS_PER_REC[i] / rate
+        mem = (t_in * cins[i] * (1 if i in layers else 2)
+               + (t_in // 2) * couts[i] * (1 if i + 1 in layers else 2)) / H100_PEAKS["bytes"]
+        bounds.append((compute, "compute") if compute >= mem else (mem, "memory"))
+    bounds.append(((T_FULL >> n_blocks) * couts[-1] * 2 / H100_PEAKS["bytes"], "memory"))
+    rows = [{"block": name, "measured_us": m * 1e6, "bound_us": analytic * 1e6,
+             "bound_kind": kind, "ratcheted_bound_us": min(analytic, m) * 1e6,
+             "headroom_us": (m - analytic) * 1e6}
+            for name, m, (analytic, kind) in zip(names, meas, bounds)]
+    total_b = sum(r["ratcheted_bound_us"] for r in rows) / 1e6
+    total_m = sum(meas)
+    return {"config": {"int8_layers": list(layers), "batch": b, "iters": _iters(iters),
+                       "chunk_records": n},
+            "peaks_assumed": {"int8_dense_tops": H100_PEAKS["int8"] / 1e12,
+                              "bf16_dense_tflops": H100_PEAKS["bf16"] / 1e12,
+                              "hbm_GBps": H100_PEAKS["bytes"] / 1e9,
+                              "source": "NVIDIA H100 SXM data sheet, 700 W"},
+            "blocks": rows, "decomposition_rps": 1.0 / total_m, "ceiling_rps": 1.0 / total_b,
+            "analytic_ceiling_rps": 1e6 / sum(r["bound_us"] for r in rows),
+            "pct_of_ceiling_decomposition": 100.0 * total_b / total_m}
 
 
 # -- the data pipeline ------------------------------------------------------------
@@ -611,9 +737,10 @@ def _extract_perf_keys(suite: dict) -> Dict[str, Tuple[float, int]]:
         for k in ("onchip_ms", "onchip_all5_ms"):
             if isinstance(lat.get(k), (int, float)):
                 out[f"demo_{k}"] = (lat[k], -1)
-    mm = suite.get("multimodal_bf16")
-    if isinstance(mm, dict) and isinstance(mm.get("rps"), (int, float)):
-        out["multimodal_bf16_rps"] = (mm["rps"], +1)
+    for key in ("multimodal_bf16", "multimodal_int8"):
+        mm = suite.get(key)
+        if isinstance(mm, dict) and isinstance(mm.get("rps"), (int, float)):
+            out[f"{key}_rps"] = (mm["rps"], +1)
     return out
 
 
@@ -706,6 +833,13 @@ def run(full: bool, device: torch.device, out_path: str) -> Tuple[dict, List[str
                   f"{r['tflops']:.1f} TF/s, prob_err={r['prob_err']:.2e})", file=sys.stderr)
     if full:
         _record(suite, failures, "multimodal_bf16", bench_multimodal, clock)
+        _record(suite, failures, "multimodal_int8", bench_multimodal, clock, precision="int8")
+        ceil = _record(suite, failures, "ceiling", bench_ceiling, clock)
+        if ceil is not None:
+            int8_rows = [r for r in rows if r.get("path") == "int8" and "error" not in r]
+            if int8_rows:
+                top = max(int8_rows, key=lambda r: r["rps"])
+                ceil["int8_row_pct_of_ceiling"] = 100.0 * top["rps"] / ceil["ceiling_rps"]
         _record(suite, failures, "demo_latency", bench_demo_latency, clock)
         suite["train"] = []
         for dtype_name, bs in (("f32", 256), ("bf16", 256), ("bf16", 1024), ("bf16", 4096)):

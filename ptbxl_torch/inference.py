@@ -27,6 +27,14 @@
   ``'default'`` runs the framework engine in bf16 with the one-pass z-score
   (inference.py:198-202).  The kernel engine computes in f32 either way, as
   the JAX kernel engine does.
+* ``precision='int8'`` is the post-training int8 path (``ops/quant.py``:
+  BatchNorm folded, the ``int8_layers`` as int8 convs, the others bf16,
+  inference.py:101-180).  It is a framework-engine feature: ``'auto'``
+  resolves to it and ``'kernel'`` raises.  The q-params come from
+  ``qparams`` (a ``quantize_model`` dict or a ``save_qparams`` path), or are
+  calibrated here on ``calib_signals`` (raw [N, 12, T] or [N, T, 12]; by
+  default the robust synthetic preset, ``quant.default_calib_signals``) for
+  ``int8_layers`` (default ``quant.default_int8_layers(arch)``).
 * chunking, and power-of-two buckets for small N with the last row (signal
   and demo vector) repeated as padding (inference.py:289-319)
 """
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import copy
 import os
+from functools import partial
 from typing import List, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -52,6 +61,7 @@ from ptbxl_torch.ops.kernels.fused_ecgcnn import (
     prepare_weights,
 )
 from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
+from ptbxl_torch.ops.quant import make_quantized_forward, resolve_qparams, split_meta, to_device
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
 
 _MAX_BATCH_ENV = os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH")
@@ -61,7 +71,7 @@ KERNEL_MAX_BATCH_BF16 = int(_MAX_BATCH_ENV or 16)  # 'default': the crossover ag
 _ARCHS = ("ecgcnn", "multimodal")
 _ENGINES = ("auto", "framework", "kernel")
 ENGINE_ALIASES = {"xla": "framework", "pallas": "kernel"}  # the JAX Predictor's names
-_PRECISIONS = ("highest", "default")
+_PRECISIONS = ("highest", "default", "int8")
 
 
 class Predictor:
@@ -81,19 +91,28 @@ class Predictor:
         data_parallel: bool = False,
         precision: str = "highest",
         device: Union[DeviceLike, Sequence[DeviceLike]] = None,
+        calib_signals=None,
+        int8_layers: Optional[Sequence[int]] = None,
+        qparams=None,
     ):
         """``state_dict`` is reference-layout (``params_io.load_checkpoint``).
-        ``device`` is one device, or with ``data_parallel`` a list of them."""
+        ``device`` is one device, or with ``data_parallel`` a list of them.
+        ``calib_signals``, ``int8_layers`` and ``qparams`` tune
+        ``precision='int8'`` (module docstring)."""
         if arch not in _ARCHS:
             raise ValueError(f"arch must be one of {_ARCHS}, got {arch!r}")
-        if precision == "int8":
-            raise NotImplementedError("precision='int8' comes with ROADMAP queue 1 item 9")
         if precision not in _PRECISIONS:
-            raise ValueError(f"precision must be one of {_PRECISIONS + ('int8',)}, got {precision!r}")
+            raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
         engine = ENGINE_ALIASES.get(engine, engine)
         if engine not in _ENGINES:
             raise ValueError(
                 f"engine must be one of {_ENGINES + tuple(ENGINE_ALIASES)}, got {engine!r}")
+        if precision == "int8":
+            # an XLA-path feature in JAX (inference.py:101-106): the framework engine
+            if engine == "kernel":
+                raise ValueError("precision='int8' runs on the framework engine only "
+                                 "(engine='framework' or 'auto'), not engine='kernel'")
+            engine = "framework"
         devices = None
         if data_parallel:
             # one replica a device on the framework engine, the only engine
@@ -117,19 +136,32 @@ class Predictor:
         self._num_labels = num_labels
 
         dtype = torch.float32 if precision == "highest" else torch.bfloat16
+        model_precision = "default" if precision == "int8" else precision
         if arch == "multimodal":
             self.model = ECGMultimodal(feat_dim=feat_dim, num_labels=num_labels,
                                        demo_hidden_dim=demo_hidden_dim,
-                                       precision=precision, dtype=dtype)
+                                       precision=model_precision, dtype=dtype)
         else:
             self.model = ECGCNN(feat_dim=feat_dim, num_labels=num_labels,
-                                precision=precision, dtype=dtype)
+                                precision=model_precision, dtype=dtype)
         merge_state(self.model, state_dict, strict=True)
         self.model.to(self.device).eval()
-        self._replicas = None
-        if devices is not None:
-            self._replicas = [(self.device, self.model)] + [
-                (d, copy.deepcopy(self.model).to(d)) for d in devices[1:]]
+        self._quant = self.int8_layers = None
+        if precision == "int8":
+            arrs, n_blocks, self.int8_layers = split_meta(resolve_qparams(
+                state_dict, arch, num_labels, qparams, calib_signals, int8_layers, normalize,
+                self.device))
+            fwd = make_quantized_forward(n_blocks, self.int8_layers, arch=arch,
+                                         normalize=normalize)
+            # one copy of the q-params on each device
+            self._quant = [(d, partial(fwd, to_device(arrs, d)))
+                           for d in (devices or [self.device])]
+        self._replicas = None  # (device, forward of a row block) a device
+        if devices is not None and self._quant is not None:
+            self._replicas = self._quant
+        elif devices is not None:
+            models = [self.model] + [copy.deepcopy(self.model).to(d) for d in devices[1:]]
+            self._replicas = [(d, partial(self._framework, m)) for d, m in zip(devices, models)]
         self._folded = self._weights = None
         if engine != "framework":
             fold = fold_multimodal if arch == "multimodal" else fold_bn_into_conv
@@ -159,6 +191,8 @@ class Predictor:
     @torch.no_grad()
     def _forward(self, x: torch.Tensor, d: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One chunk on the device: x [B, T, 12] (+ d [B, 5] for multimodal) -> probs."""
+        if self._quant is not None:
+            return self._quant[0][1](x, d)
         if self._use_kernel(x.shape[0]):
             if self.arch == "multimodal":
                 return fused_multimodal_probs(x, d, self._folded, normalize=self.normalize,
@@ -175,8 +209,8 @@ class Predictor:
         n = len(self._replicas)
         xs = x.chunk(n)
         ds = d.chunk(n) if d is not None else [None] * n
-        outs = [self._framework(model, xi.to(dev), None if di is None else di.to(dev))
-                for (dev, model), xi, di in zip(self._replicas, xs, ds)]
+        outs = [run(xi.to(dev), None if di is None else di.to(dev))
+                for (dev, run), xi, di in zip(self._replicas, xs, ds)]
         return torch.cat([o.cpu() for o in outs])
 
     def __call__(self, signals, demo=None) -> np.ndarray:

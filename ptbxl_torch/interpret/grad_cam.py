@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ptbxl_torch.models.ecg_cnn import ECGCNN
+from ptbxl_torch.models.ecg_cnn import ECGCNN, dense, precision_scope
 from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
 
 
@@ -127,6 +127,48 @@ class GradCAM:
                 w = dyda.mean(dim=1, keepdim=True)           # [B, 1, C]
                 cams.append(torch.relu((w * a.detach()).sum(dim=-1)))  # [B, T']
         return torch.sigmoid(logits.detach()), self._finish(torch.stack(cams))
+
+    def all_classes(self, x: torch.Tensor, x_demo=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``multi`` for every class, its backward through ``tail`` written out
+        as tensor ops (no autograd), so that ``torch.export`` can trace it:
+        x [B, T, C] (+ x_demo [B, 5]) -> (probs [B, L], cams [L, B, T]).
+        (``multi``'s ``torch.autograd.grad`` exports to no working program:
+        ``ptbxl_torch/tools/probe_cam_export.py``.)
+
+        From the last block's pooled output ``p`` [B, C, T''] the tail is
+        linear: d logits[:, l] / d p[b, c, t] = u[b, l, c] / T'', with
+        ``u = head_w @ proj_w`` (times FiLM's ``gamma[b]`` over the features
+        for the multimodal model).  The pool and ReLU send each window's
+        cotangent to its max where that max is positive (torch's pool
+        backward routes a tie to its first element, K6 splits it: the sum over
+        the window is the same), and BatchNorm scales it by ``weight /
+        sqrt(var + eps)``; so mean_t(dY/dA) = scale * u / T'' * n_pos / T',
+        n_pos the count of positive pooled values.  Computed in f32.
+        """
+        m = self.model
+        bb = m.ecg_backbone if self.multimodal else m
+        extra = (_as_tensor(x_demo, m),) if self.multimodal else ()
+        if self.multimodal and x_demo is None:
+            raise ValueError("multimodal Grad-CAM requires x_demo")
+        with torch.no_grad():
+            a = m.features(_as_tensor(x, m))                   # [B, T', C]
+            logits = m.tail(a, *extra)
+            blk = bb.backbone[-1]
+            pooled = blk.post(a.transpose(1, 2))               # [B, C, T'']
+            bn = blk.net[1]
+            with precision_scope(m.precision):
+                wh, wp = m.head.weight.float(), bb.proj.weight.float()  # [L, F], [F, C]
+                if self.multimodal:
+                    film = dense(m.film_gen, m.demo_encoder(extra[0]), m.dtype).float()
+                    gamma = 1.0 + torch.tanh(film[:, :wp.shape[0]])   # [B, F]
+                    u = torch.matmul(wh[None] * gamma[:, None, :], wp)  # [B, L, C]
+                else:
+                    u = torch.matmul(wh, wp)[None]                      # [1, L, C]
+                scale = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+                n_pos = (pooled > 0).sum(dim=2).float()[:, None, :]    # [B, 1, C]
+                w = (u / pooled.shape[2]) * scale * n_pos / a.shape[1]  # [B, L, C]
+                cams = torch.relu(torch.einsum("blc,btc->lbt", w, a.float()))
+        return torch.sigmoid(logits.float()), self._finish(cams)
 
     def __call__(self, x: torch.Tensor, class_idx: int = 0, x_demo=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -35,11 +35,20 @@ off), the folded bias, the floor pool, a ones-mean and bf16 operand rounding
 where the JAX products round.  A CUDA tensor launches the kernels or raises.
 ``launches`` counts K2 forwards launched on the card and ``launches_mm`` K3
 forwards (each is the sequence above).
+
+The probability forwards are also the custom ops ``ptbxl::fused_ecgcnn_probs``
+and ``ptbxl::fused_multimodal_probs`` (registered when this module is
+imported), which take tensors and scalars alone: the folded dict and the
+split weights travel as one tensor list (``_op_params``).  Only an exported
+program calls them (``fused_*_probs_op``; ``ptbxl_torch/serving.py``,
+``engine='kernel'``): their body is ``fused_*_probs``, the same launch
+sequence ``Predictor``'s kernel engine calls directly, without the op's
+dispatch.  The fake implementation gives ``[B, L]`` f32 from the shapes alone.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -360,10 +369,61 @@ def fused_ecgcnn_logits(x: torch.Tensor, folded: Folded,
     return logits
 
 
+_ECG_DENSE = ("proj_w", "proj_b", "head_w", "head_b")
+_MM_DENSE = ("proj_w", "proj_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "film_w", "film_b",
+             "head_w", "head_b")
+
+
+def _op_params(folded: Folded, weights: Optional[list], dense: Sequence[str]) -> List[torch.Tensor]:
+    """The custom ops' tensor list: ``w0, b0, .., w{n-1}, b{n-1}``, the dense
+    tail in ``dense`` order, then the split weights (none: built per call)."""
+    n = int(folded["n_blocks"])
+    return ([folded[f"{p}{i}"] for i in range(n) for p in "wb"]
+            + [folded[k] for k in dense] + list(weights or []))
+
+
+def _op_unpack(params: Sequence[torch.Tensor], n_blocks: int, dense: Sequence[str]
+               ) -> Tuple[Folded, Optional[list]]:
+    folded: Folded = {"n_blocks": n_blocks}
+    for i in range(n_blocks):
+        folded[f"w{i}"], folded[f"b{i}"] = params[2 * i], params[2 * i + 1]
+    folded.update(zip(dense, params[2 * n_blocks:2 * n_blocks + len(dense)]))
+    weights = list(params[2 * n_blocks + len(dense):])
+    return folded, weights or None
+
+
+def _op_out(x: torch.Tensor, params: Sequence[torch.Tensor], n_blocks: int,
+            dense: Sequence[str]) -> torch.Tensor:
+    head_b = params[2 * n_blocks + len(dense) - 1]
+    return x.new_empty((x.shape[0], head_b.shape[0]), dtype=torch.float32)
+
+
+@torch.library.custom_op("ptbxl::fused_ecgcnn_probs", mutates_args=())
+def _ecgcnn_probs_op(x: torch.Tensor, params: List[torch.Tensor], n_blocks: int,
+                     normalize: bool, bf16: bool) -> torch.Tensor:
+    folded, weights = _op_unpack(params, n_blocks, _ECG_DENSE)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return fused_ecgcnn_probs(x, folded, dt, normalize, weights)
+
+
+@_ecgcnn_probs_op.register_fake
+def _(x, params, n_blocks, normalize, bf16):
+    return _op_out(x, params, n_blocks, _ECG_DENSE)
+
+
 def fused_ecgcnn_probs(x: torch.Tensor, folded: Folded,
                        compute_dtype: torch.dtype = torch.float32,
                        normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
     return torch.sigmoid(fused_ecgcnn_logits(x, folded, compute_dtype, normalize, weights))
+
+
+def fused_ecgcnn_probs_op(x: torch.Tensor, folded: Folded,
+                          compute_dtype: torch.dtype = torch.float32,
+                          normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+    """``fused_ecgcnn_probs`` as one call of ``ptbxl::fused_ecgcnn_probs``."""
+    return torch.ops.ptbxl.fused_ecgcnn_probs(
+        x, _op_params(folded, weights, _ECG_DENSE), int(folded["n_blocks"]), normalize,
+        compute_dtype == torch.bfloat16)
 
 
 def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
@@ -412,8 +472,31 @@ def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
     return logits
 
 
+@torch.library.custom_op("ptbxl::fused_multimodal_probs", mutates_args=())
+def _multimodal_probs_op(x: torch.Tensor, demo: torch.Tensor, params: List[torch.Tensor],
+                         n_blocks: int, normalize: bool, bf16: bool) -> torch.Tensor:
+    folded, weights = _op_unpack(params, n_blocks, _MM_DENSE)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return fused_multimodal_probs(x, demo, folded, dt, normalize, weights)
+
+
+@_multimodal_probs_op.register_fake
+def _(x, demo, params, n_blocks, normalize, bf16):
+    return _op_out(x, params, n_blocks, _MM_DENSE)
+
+
 def fused_multimodal_probs(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
                            compute_dtype: torch.dtype = torch.float32,
                            normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
     return torch.sigmoid(fused_multimodal_logits(x, demo, folded, compute_dtype, normalize,
                                                  weights))
+
+
+def fused_multimodal_probs_op(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
+                              compute_dtype: torch.dtype = torch.float32,
+                              normalize: bool = True, weights: Optional[list] = None
+                              ) -> torch.Tensor:
+    """``fused_multimodal_probs`` as one call of ``ptbxl::fused_multimodal_probs``."""
+    return torch.ops.ptbxl.fused_multimodal_probs(
+        x, demo, _op_params(folded, weights, _MM_DENSE), int(folded["n_blocks"]), normalize,
+        compute_dtype == torch.bfloat16)

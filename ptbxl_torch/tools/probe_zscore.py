@@ -8,9 +8,13 @@ Times each variant (``variants``) on one bf16 batch ``[PROBE_BS, 5000, 12]``
 record beside the variant's bytes bound (its input read once and its output
 written once, at 3.35 TB/s).  Variants: the two-pass and one-pass torch forms
 (f32 out), K1 ``zscore`` with bf16 out, and K5 ``zscore_wide`` with bf16 out
-at ``block_b`` 4/8/16 and ``width`` 240/1200.  The JAX probe's in-model column
-runs the int8 forward, which is not ported yet.  ``--device cpu`` runs it on
-the host at ``PROBE_BS`` (host clocks: no device measurement).
+at ``block_b`` 4/8/16 and ``width`` 240/1200.  The in-model column
+(``inmodel``, probe_zscore.py:131) runs the shipping int8 forward
+(``ops/quant.py``, baseline checkpoint, robust calibration) on the same
+batch with only the z-score form swapped: records/s of the forward with its
+own one-pass z-score (``ship``), and of each variant's output fed to the
+forward without normalization.  ``--device cpu`` runs it on the host at
+``PROBE_BS`` (host clocks: no device measurement).
 
 ``--cases`` prints one JSON line: the z-score kernels at the main paths'
 shapes (``CASES``: K1 f32 and its stats entry at B=1, 512 and 8192, K5
@@ -84,6 +88,29 @@ def run(batch: torch.Tensor, iters: int = ITERS) -> List[dict]:
                          "bound_ms": b, "bound_us_per_record": b * 1e3 / batch.shape[0],
                          "out_dtype": str(out_dtype).replace("torch.", "")})
     return rows
+
+
+def inmodel(batch: torch.Tensor, iters: int = ITERS) -> Dict[str, float]:
+    """Records/s of the int8 forward on ``batch`` with each z-score variant in
+    front of it (``ship``: the forward's own one-pass z-score)."""
+    from ptbxl_torch import bench
+    from ptbxl_torch.models.params_io import load_checkpoint
+    from ptbxl_torch.ops.quant import (make_quantized_forward, quantize_model, split_meta,
+                                       to_device)
+
+    clock = Clock(batch.device)
+    state, _ = load_checkpoint(bench.CKPT)
+    arrs, n_blocks, layers = split_meta(quantize_model(state, device=batch.device))
+    arrs = to_device(arrs, batch.device)
+    fwd_norm = make_quantized_forward(n_blocks, layers)
+    fwd_raw = make_quantized_forward(n_blocks, layers, normalize=False)
+    n = batch.shape[0]
+    out = {}
+    with torch.no_grad():
+        out["ship"] = n / clock.ms(lambda: fwd_norm(arrs, batch), iters) * 1e3
+        for name, zs in variants().items():
+            out[name] = n / clock.ms(lambda: fwd_raw(arrs, zs(batch)), iters) * 1e3
+    return out
 
 
 # (name, entry, batch, input dtype): the main paths' z-score launches at [B, 5000, 12]
@@ -216,10 +243,13 @@ def main(argv=None) -> int:
     batch = make_batch(BS, device)
     print(f"# bs={BS} iters={ITERS} device={device.type}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    print(f"{'variant':<16} {'us/rec':>9} {'bound us/rec':>13} {'ms':>9}")
-    for r in run(batch):
+    rows = run(batch)
+    rps = inmodel(batch, max(2, ITERS // 4))
+    print(f"{'variant':<16} {'us/rec':>9} {'bound us/rec':>13} {'ms':>9} {'in-model rec/s':>15}")
+    print(f"{'ship (in fwd)':<16} {'-':>9} {'-':>13} {'-':>9} {rps['ship']:>15.0f}")
+    for r in rows:
         print(f"{r['variant']:<16} {r['us_per_record']:>9.4f} {r['bound_us_per_record']:>13.4f} "
-              f"{r['ms']:>9.3f}")
+              f"{r['ms']:>9.3f} {rps[r['variant']]:>15.0f}")
     return 0
 
 

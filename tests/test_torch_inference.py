@@ -121,14 +121,6 @@ def test_no_cuda_raises_without_device(monkeypatch):
         Predictor.from_checkpoint(CKPT)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"precision": "int8"}, "item 9"),
-])
-def test_later_features_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port(**kwargs)
-
-
 def test_multimodal_raises():
     """The multimodal Predictor is ported (tests/test_torch_predictor_mm.py); it raises
     without demo vectors (test_predictor.py:63)."""

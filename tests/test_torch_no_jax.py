@@ -56,6 +56,9 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.utils.profiling, ptbxl_torch.ops.signal\n"
         "import ptbxl_torch.parallel.collectives, ptbxl_torch.parallel.mesh\n"
         "import ptbxl_torch.parallel.multihost, ptbxl_torch.parallel.dryrun\n"
+        "import ptbxl_torch.ops.quant, ptbxl_torch.ops.quant_eval, ptbxl_torch.serving\n"
+        "import ptbxl_torch.tools.probe_int8, ptbxl_torch.tools.tune_int8\n"
+        "import ptbxl_torch.tools.probe_cam_export\n"
         f"banned = {FORBIDDEN + ABSENT_ON_GPU + DRAWN!r}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(bad)\n"
@@ -115,7 +118,10 @@ def test_port_file_list_is_complete():
                  "ptbxl_torch/cli/save_demo_multimodal.py", "ptbxl_torch/utils/profiling.py",
                  "ptbxl_torch/ops/signal.py", "ptbxl_torch/parallel/collectives.py",
                  "ptbxl_torch/parallel/mesh.py", "ptbxl_torch/parallel/multihost.py",
-                 "ptbxl_torch/parallel/dryrun.py"):
+                 "ptbxl_torch/parallel/dryrun.py", "ptbxl_torch/ops/quant.py",
+                 "ptbxl_torch/ops/quant_eval.py", "ptbxl_torch/serving.py",
+                 "ptbxl_torch/tools/probe_int8.py", "ptbxl_torch/tools/tune_int8.py",
+                 "ptbxl_torch/tools/probe_cam_export.py"):
         assert path in PORT_FILES, path
 
 

@@ -129,14 +129,6 @@ def test_kernel_engine_reaches_k3(pack, monkeypatch):
     assert calls == [(4, 5)]
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"precision": "int8"}, "item 9"),
-])
-def test_later_features_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port(**kwargs)
-
-
 ROWS = [
     {"age": 56, "sex": "M", "height": 180, "weight": 80, "pacemaker": 0},
     {"age": 72.5, "sex": "F", "height": 160.0, "weight": 55.5, "pacemaker": "ja, pacemaker"},
