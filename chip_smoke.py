@@ -34,7 +34,12 @@ int8 ``Predictor`` and the 519-signal battery gated, the card against the
 CPU, ms and memory at 8192 beside framework bf16 and K4; then the serving
 export, every artifact variant exported with ``torch.export``, reloaded and
 held against its ``Predictor``, K1/K2/K3 launched from the kernel-engine
-artifacts), checks them against the golden
+artifacts; then the phase-domain training alternatives at full width: a
+``phase_train`` step of each checkpoint's model against the standard step
+(f32 and bf16, K6 one launch a step against four), ``phase_conv``,
+``conv1d_fast_wgrad`` at every block's geometry and the phase-packed front
+at B=8192; the four training-backward probes and ``proto_int8``; CLI 01
+against a loopback HTTP mirror of the synthetic tree), checks them against the golden
 outputs, the demo-pack parity gate, the JAX scripts' CSV schemas, ``Predictor``,
 ``GradCAM``, ``compute_metrics`` and ``per_class_scores``, and times the kernels, the
 train step and the epoch beside their plain versions, the framework (cuDNN,
@@ -51,6 +56,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import glob
+import http.server
 import json
 import os
 import statistics
@@ -92,7 +98,13 @@ PROBE_LAYER_B = 2048  # tools/probe_layer_perf.py's and tools/probe_sublane_conv
 DATA_N = 1024  # records of the synthetic PTB-XL tree the data, CLI phases read
 
 
+START = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (s since start)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.monotonic() - START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2016,6 +2028,324 @@ def phase_serving(dev: torch.device, work: str, x_raw: torch.Tensor) -> dict:
 K4_KERNELS = ("zscore", "wgmma_conv_block", "sums_tail")  # the bf16 route's own kernels
 
 
+PHASE_B = 64  # phase_domain's train steps (configs/ecg_baseline.yaml's batch)
+FRONT_B = 8192  # the packed front's batch (the port bench's hybrid row)
+TRAIN_PROBE_B = 512  # train_probes' batch; the JAX tools' 4096 runs standalone
+TRAIN_PROBE_ITERS = 3
+PROTO_INT8_B = 2048  # proto_int8's timing rows
+FETCH_DELETED = 24  # records of the fetch phase's local copy with a file deleted
+
+
+def _phase_models(arch: str, state: dict, prec: str, dtype: torch.dtype) -> dict:
+    """{phase_train: model} from one state dict, on the card."""
+    from ptbxl_torch.models.ecg_cnn import ECGCNN
+    from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
+
+    cls = ECGMultimodal if arch == "multimodal" else ECGCNN
+    out = {}
+    for phase in (False, True):
+        m = cls(num_labels=5, precision=prec, dtype=dtype, phase_train=phase)
+        m.load_state_dict(state)
+        out[phase] = m.cuda()
+    return out
+
+
+def _phase_steps(arch: str, state: dict, gen: torch.Generator) -> tuple:
+    """One train step (``make_train_step``) with ``phase_train`` against the
+    standard step from the same weights and batch, f32 ``highest`` and bf16
+    ``default``, K6 counted from 0 around each step; eval logits of the two
+    forms; the steps' ms in turns (standard, phase, phase, standard)."""
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
+    from ptbxl_torch.training.loop import make_train_step
+    from ptbxl_torch.training.train_state import create_train_state
+
+    mm = arch == "multimodal"
+    batch = _train_batch(PHASE_B, gen, demo=mm)
+    step = make_train_step(multimodal=mm)
+    xz = zscore_per_lead_batch(batch["ecg"])
+    out, launches, f32_loss = {}, {"phase_train": 0, "standard": 0}, None
+    cudnn = torch.backends.cudnn
+    for prec, dtype, name in (("highest", torch.float32, "f32"),
+                              ("default", torch.bfloat16, "bf16")):
+        models = _phase_models(arch, state, prec, dtype)
+        saved = cudnn.deterministic
+        cudnn.deterministic = True
+        try:
+            with torch.no_grad():
+                ev = [m.eval()(xz, batch["demo"]) if mm else m.eval()(xz)
+                      for m in models.values()]
+        finally:
+            cudnn.deterministic = saved
+        if not torch.equal(ev[0], ev[1]):
+            raise AssertionError(f"{arch} {name}: phase_train changed the eval logits")
+        res, states = {}, {}
+        for phase, m in models.items():
+            states[phase] = create_train_state(m, TRAIN_LR, TRAIN_WD)
+            k6.launches = 0
+            _, loss = step(states[phase], batch)
+            torch.cuda.synchronize()
+            want = 1 if phase else 4
+            if k6.launches != want:
+                raise AssertionError(f"{arch} {name} phase_train={phase}: {k6.launches} K6 "
+                                     f"launches in a step (want {want})")
+            launches["phase_train" if phase else "standard"] += k6.launches
+            res[phase] = {"loss": float(loss),
+                          "grads": {n: p.grad.detach().clone() for n, p in m.named_parameters()},
+                          "bn": {k: v.clone() for k, v in m.state_dict().items()
+                                 if "running_" in k}}
+        std, ph = res[False], res[True]
+        row = {"loss_standard": std["loss"], "loss_phase": ph["loss"],
+               "eval_logits_bit_identical": True,
+               "relu_pool_bwd_launches": {"standard": 4, "phase_train": 1}}
+        if name == "f32":
+            f32_loss = std["loss"]
+            row["loss_abs_diff"] = gate(f"{arch} phase loss", abs(ph["loss"] - std["loss"]), 1e-5)
+            row["bn_max_abs_diff"] = gate(f"{arch} phase BN stats", max(
+                max_diff(ph["bn"][k], v) for k, v in std["bn"].items()), 1e-5)
+            worst = 0.0
+            for n, g in std["grads"].items():
+                scale = max(1.0, float(g.abs().max()))
+                err = gate(f"{arch} phase grad {n}", max_diff(ph["grads"][n], g), 2e-4 * scale)
+                worst = max(worst, err / scale)
+            row["grad_max_abs_diff_over_scale"] = worst
+        else:
+            row["loss_vs_f32_standard"] = {
+                "standard": gate(f"{arch} bf16 standard loss vs f32", abs(std["loss"] - f32_loss),
+                                 5e-3),
+                "phase": gate(f"{arch} bf16 phase loss vs f32", abs(ph["loss"] - f32_loss), 5e-3)}
+        ms = {False: [], True: []}
+        for phase in (False, True, True, False):
+            ms[phase].append(time_ms(lambda: step(states[phase], batch)))
+        row["step_ms_standard"], row["step_ms_phase"] = ms[False], ms[True]
+        out[name] = row
+        del models, states, res
+    return out, launches
+
+
+def _block_inputs(state: dict, x: torch.Tensor) -> list:
+    """Each conv block's input [B, Cin, T] of the eval ECGCNN on z-scored
+    ``x [B, T, 12]``, f32 ``highest``; and the model."""
+    from ptbxl_torch.models.ecg_cnn import ECGCNN
+    from ptbxl_torch.utils.device import highest_precision
+
+    m = ECGCNN(num_labels=5)
+    m.load_state_dict(state)
+    m = m.cuda().eval()
+    hs = [x.transpose(1, 2).contiguous()]
+    with torch.no_grad(), highest_precision():
+        for blk in m.backbone[:-1]:
+            hs.append(blk(hs[-1]))
+    return hs, m
+
+
+def _fast_wgrad_case(h: torch.Tensor, w: torch.Tensor, gen: torch.Generator) -> dict:
+    """``conv1d_fast_wgrad`` at one block's geometry against autograd's conv:
+    dx bit for bit (deterministic cuDNN), dw relative to max|dw|; then the
+    backward's ms, with and without dx, against autograd's (TF32 off)."""
+    from ptbxl_torch.ops.fast_wgrad import _pick_phases, conv1d_fast_wgrad
+    from ptbxl_torch.utils.device import highest_precision
+
+    x = h.transpose(1, 2).contiguous()                 # [B, T, Cin]
+    kern = w.detach().permute(2, 1, 0).contiguous()    # [15, Cin, Cout]
+    dy = torch.randn(x.shape[0], x.shape[1], kern.shape[2], generator=gen, device="cuda")
+
+    def graph(fast: bool, need_dx: bool):
+        xr = x.clone().requires_grad_(need_dx)
+        wr = kern.clone().requires_grad_(True)
+        if fast:
+            y = conv1d_fast_wgrad(xr, wr, (7, 7), "highest")
+        else:
+            y = F.conv1d(xr.transpose(1, 2), wr.permute(2, 1, 0), padding=7).transpose(1, 2)
+        return y, ((xr, wr) if need_dx else (wr,))
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        with highest_precision():
+            (yr, ins_r), (yf, ins_f) = graph(False, True), graph(True, True)
+            dx_r, dw_r = torch.autograd.grad(yr, ins_r, dy)
+            dx_f, dw_f = torch.autograd.grad(yf, ins_f, dy)
+    finally:
+        cudnn.deterministic = saved
+    t = x.shape[1]
+    row = {"T": t, "Cin": x.shape[2], "Cout": kern.shape[2], "phases": _pick_phases(t),
+           "primal_max_abs_diff": gate(f"fast_wgrad primal T={t}",
+                                       max_diff(yf.detach(), yr.detach()), 0.0),
+           "dx_max_abs_diff": gate(f"fast_wgrad dx T={t}", max_diff(dx_f, dx_r), 0.0),
+           "dw_rel_err": gate(f"fast_wgrad dw T={t}",
+                              max_diff(dw_f, dw_r) / float(dw_r.abs().max()), 1e-5)}
+    with highest_precision():
+        for key, need_dx in (("bwd", True), ("wgrad", False)):
+            for fast in (False, True):
+                y, ins = graph(fast, need_dx)
+                row[f"{'fast' if fast else 'autograd'}_{key}_ms"] = time_ms(
+                    lambda: torch.autograd.grad(y, ins, dy, retain_graph=True))
+    return row
+
+
+def phase_domain(gen: torch.Generator) -> dict:
+    """The phase-domain training alternatives at full width (T=5000) on the
+    committed ECGCNN and multimodal checkpoints: ``phase_train`` steps against
+    the standard ones (``_phase_steps``); ``phase_conv_cf`` at blocks 0-2's
+    geometries against ``F.conv1d`` interleaved (f32, TF32 off, 1e-5) and
+    both timed; ``conv1d_fast_wgrad`` at each block's geometry; the packed
+    front at B=8192 against ``_front_plain`` (f32 1e-5 with TF32 off, bf16
+    5e-3 with TF32 allowed for both) and both timed."""
+    from ptbxl_torch.models.params_io import load_checkpoint
+    from ptbxl_torch.ops.kernels.fused_ecgcnn import fold_bn_into_conv
+    from ptbxl_torch.ops.kernels.hybrid_ecgcnn import _front_plain
+    from ptbxl_torch.ops.phase_conv import phase_conv_cf
+    from ptbxl_torch.ops.phase_pack import phase_packed_front, prepack_front
+    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
+    from ptbxl_torch.utils.device import highest_precision
+
+    info = {"phase": "phase_domain", "batch": PHASE_B, "steps": {}}
+    launches = {"phase_train": 0, "standard": 0}
+    for arch, ckpt in (("ecgcnn", CKPT), ("multimodal", CKPT_MM)):
+        state, _ = load_checkpoint(ckpt, arch=arch)
+        info["steps"][arch], n = _phase_steps(arch, state, gen)
+        for k in launches:
+            launches[k] += n[k]
+    info["relu_pool_bwd_launches"] = launches
+
+    state, _ = load_checkpoint(CKPT)
+    hs, model = _block_inputs(state, zscore_per_lead_batch(raw_batch(PHASE_B, gen)))
+    info["phase_conv"], info["fast_wgrad"] = [], []
+    with torch.no_grad(), highest_precision():
+        for i, h in enumerate(hs[:3]):
+            conv = model.backbone[i].net[0]
+            got = phase_conv_cf(h, conv.weight, conv.bias)
+            want = F.conv1d(h, conv.weight, conv.bias, padding=7)
+            b, c2, u = got.shape
+            inter = got.view(b, 2, c2 // 2, u).permute(0, 2, 3, 1).reshape(want.shape)
+            info["phase_conv"].append({
+                "T": h.shape[2], "Cin": h.shape[1], "Cout": c2 // 2,
+                "max_abs_err": gate(f"phase_conv block {i}", max_diff(inter, want), 1e-5),
+                "ms": time_ms(lambda: phase_conv_cf(h, conv.weight, conv.bias)),
+                "conv_ms": time_ms(lambda: F.conv1d(h, conv.weight, conv.bias, padding=7))})
+    for i, h in enumerate(hs):
+        info["fast_wgrad"].append(_fast_wgrad_case(h, model.backbone[i].net[0].weight, gen))
+    del hs
+
+    folded = fold_bn_into_conv({k: v.cuda() for k, v in state.items()})
+    packed = prepack_front(folded)
+    xz = zscore_per_lead_batch(raw_batch(FRONT_B, gen))
+    info["packed_front"] = {"batch": FRONT_B}
+    for dt, tol, scope in ((torch.float32, 1e-5, highest_precision),
+                           (torch.bfloat16, 5e-3, contextlib.nullcontext)):
+        with torch.no_grad(), scope():
+            err = max_diff(phase_packed_front(xz, None, dt, packed),
+                           _front_plain(xz, folded, 2, dt))
+            info["packed_front"][str(dt)[6:]] = {
+                "max_abs_err": gate(f"packed front {dt}", err, tol),
+                "ms": time_ms(lambda: phase_packed_front(xz, None, dt, packed), reps=5),
+                "plain_ms": time_ms(lambda: _front_plain(xz, folded, 2, dt), reps=5)}
+    del xz
+    return info
+
+
+def phase_train_probes() -> dict:
+    """The four training-backward probes and ``proto_int8`` on the card at
+    TRAIN_PROBE_B (one line each; the form errors of ``probe_phase_forms``
+    gated at 1e-5 relative in f32), then ``proto_int8``'s demo-pack error
+    beside the shipped int8 ``Predictor``'s."""
+    from ptbxl_torch.inference import Predictor
+    from ptbxl_torch.tools import (probe_bwd_breakdown, probe_phase_forms, probe_pool,
+                                   probe_train_gap, proto_int8)
+
+    b, it = TRAIN_PROBE_B, TRAIN_PROBE_ITERS
+    rows = probe_phase_forms.run(b, "f32", T_FULL, it, "cuda")
+    for r in rows:
+        gate(f"probe_phase_forms s2p T={r['T']}", r["err_s2p"], 1e-5)
+        gate(f"probe_phase_forms pair T={r['T']}", r["err_pair"], 1e-5)
+    emit({"phase": "probe_phase_forms", "batch": b, "dtype": "f32", "rows": rows})
+    emit({"phase": "probe_pool", "batch": b, "dtype": "bf16",
+          "rows": probe_pool.run(b, "bf16", T_FULL, it, "cuda")})
+    emit({"phase": "probe_bwd_breakdown", "batch": b, "dtype": "bf16",
+          "rows": probe_bwd_breakdown.run(b, "bf16", T_FULL, it, "cuda")})
+    emit({"phase": "probe_train_gap", "batch": b, "dtype": "bf16",
+          "rows": probe_train_gap.run(b, "bf16", T_FULL, it, "cuda")})
+    out = proto_int8.run("cuda", batch=PROTO_INT8_B)
+    sigs = demo_signals()
+    shipped = Predictor.from_checkpoint(CKPT, precision="int8")(sigs)
+    ref = Predictor.from_checkpoint(CKPT, engine="framework")(sigs)
+    out["shipped_int8_max_abs_dprob"] = float(np.abs(shipped - ref).max())
+    for name, r in out["demo_pack"].items():
+        if not np.isfinite(r["max_abs_dprob"]):
+            raise AssertionError(f"proto_int8 {name}: {r}")
+    return {"phase": "proto_int8", **out}
+
+
+class _QuietHandler(http.server.SimpleHTTPRequestHandler):
+    """A static file server that logs no requests."""
+
+    def log_message(self, *args) -> None:
+        pass
+
+
+def phase_fetch(tree: str, work: str) -> dict:
+    """CLI 01 against a loopback mirror: a copy of the synthetic tree served by
+    ``http.server`` on 127.0.0.1 (it lacks the ``.dat`` of the one record the
+    data layer drops as unreadable) and a local copy with a ``.hea`` or
+    ``.dat`` deleted from FETCH_DELETED complete records.  A run capped by
+    ``--max_missing`` fetches that many records and exits 0; the full run
+    fetches the rest byte for byte, leaves no ``.part``, ends with the record
+    the server lacks in ``failed_records`` and exits 1."""
+    import functools
+    import shutil
+    import threading
+
+    from ptbxl_torch.cli import download_missing_records as cli01
+    from ptbxl_torch.data.fetch import scan_missing
+
+    served, local = os.path.join(work, "served"), os.path.join(work, "local")
+    shutil.copytree(tree, served, ignore=shutil.ignore_patterns(".ptbxl_*"))
+    shutil.copytree(served, local)
+    lost = scan_missing(served)
+    rels = sorted(os.path.relpath(p, served)[:-4] for p in glob.glob(
+        os.path.join(served, "records500", "*", "*.dat")))[:FETCH_DELETED]
+    for i, rel in enumerate(rels):
+        os.remove(os.path.join(local, rel + (".hea", ".dat")[i % 2]))
+    cap = len([r for r in rels if r < lost[0]]) if lost else 0
+    if not lost or cap < 1:
+        raise AssertionError(f"fetch: the tree lacks {lost}; {cap} records before it")
+    handler = functools.partial(_QuietHandler, directory=served)
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_port}/"
+    t0 = time.perf_counter()
+    try:
+        capped, _ = _run_cli(cli01.main, ["--base_dir", local, "--base_url", url,
+                                          "--max_missing", str(cap)])
+        left = scan_missing(local)
+        if (capped.attempted, capped.completed, len(left)) != (cap, cap, FETCH_DELETED + 1 - cap):
+            raise AssertionError(f"--max_missing {cap}: {capped}, {len(left)} left")
+        try:
+            _run_cli(cli01.main, ["--base_dir", local, "--base_url", url])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    wall_s = time.perf_counter() - t0
+    if code != 1 or scan_missing(local) != lost:
+        raise AssertionError(f"CLI 01 exit {code}, still missing {scan_missing(local)}")
+    differing = [rel + sfx for rel in rels for sfx in (".hea", ".dat")
+                 if open(os.path.join(local, rel + sfx), "rb").read()
+                 != open(os.path.join(served, rel + sfx), "rb").read()]
+    parts = glob.glob(os.path.join(local, "**", "*.part"), recursive=True)
+    if differing or parts:
+        raise AssertionError(f"fetched files differ {differing}, .part left {parts}")
+    return {"phase": "fetch", "records_deleted": FETCH_DELETED, "capped_run": cap,
+            "fetched_byte_equal": FETCH_DELETED, "failed_records": lost, "exit_code": code,
+            "part_files_left": 0, "wall_s": wall_s}
+
+
 def split_breakdown(launches: list) -> dict:
     """K4's per-launch device times: the stats pass, each ``wgmma`` block and
     the tail.  Raises if the route launched any kernel but the port's own
@@ -2579,6 +2909,14 @@ def main(argv=None) -> int:
         serving_info = phase_serving(dev, work, x_raw)
     emit(serving_info)
 
+    # -- phase 10: the phase-domain training alternatives, the training-backward
+    # probes and proto_int8, and CLI 01 against a loopback mirror of the tree
+    domain_info = phase_domain(gen)
+    emit(domain_info)
+    emit(phase_train_probes())
+    with tempfile.TemporaryDirectory() as work:
+        emit(phase_fetch(tree, work))
+
     big = times[BIG]
     one = times[1]
     sources = {
@@ -2632,13 +2970,15 @@ def main(argv=None) -> int:
             entry["max_abs_err_ragged_t37"] = max(k1_info["max_abs_err_ragged_t37"].values())
         kernels.append(entry)
     # K6: one B=64 train step's four launches; launches on the training path, on
-    # the Grad-CAM path (baseline + multimodal) and on CLIs 11, 13 and the demo CLI
+    # the Grad-CAM path (baseline + multimodal), on CLIs 11, 13 and the demo CLI
+    # and on the phase_train steps (one a step: the last block's pool)
     t32, t16 = k6_times["float32"], k6_times["bfloat16"]
     k6_by_path = {"train": train_info["launches"]["relu_pool_bwd"], "grad_cam": launches_cam,
                   "grad_cam_cli": sum(
                       analysis_info["grad_cam_cli"]["relu_pool_bwd_launches"].values()),
                   "train_extras": extras_info["launches"]["relu_pool_bwd"],
-                  "ddp": ddp_info["one_rank_nccl"]["relu_pool_bwd_launches"]}
+                  "ddp": ddp_info["one_rank_nccl"]["relu_pool_bwd_launches"],
+                  "phase_train": domain_info["relu_pool_bwd_launches"]["phase_train"]}
     kernels.append({
         "name": "relu_pool_bwd", "route": "cuda", "source": "ptbxl_torch/csrc/relu_pool.cu",
         "replaces": "ptbxl_tpu/ops/relu_pool.py:65",

@@ -23,11 +23,15 @@ parameters for 5 labels.  Submodule names follow the reference state dict
 * ``torch_init=True`` is torch's own default init (the reference's
   distribution); ``False`` is flax's default (lecun-normal kernels, zero
   biases), as in the JAX package.  Both draw from an explicit generator.
+* ``phase_train=True`` runs a train-mode block whose input length is even
+  in the phase domain (``ops/phase_conv.py``; JAX ``ConvBlock.__call__``,
+  ecg_cnn.py:166-170): the same function, whose pool backward is the
+  phase max's instead of K6.  Off by default, as in JAX; eval mode and the
+  last block (which ``features``/``tail`` split) never take it.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -35,9 +39,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ptbxl_torch.ops.phase_conv import phase_conv_cf
 from ptbxl_torch.ops.relu_pool import relu_max_pool2
 from ptbxl_torch.parallel.collectives import ColumnParallelLinear, all_reduce_sum
-from ptbxl_torch.utils.device import highest_precision
+from ptbxl_torch.utils.device import precision_scope
 
 PARITY_PRECISION = "highest"
 BN_EPS = 1e-5
@@ -77,11 +82,6 @@ def reset_layers(blocks: Sequence[nn.Module], linears: Sequence[nn.Linear], torc
         _init_bias(lin.bias, lin.in_features, torch_init, generator)
 
 
-def precision_scope(precision: Optional[str]):
-    """``highest_precision()`` for ``precision='highest'``, else no change."""
-    return highest_precision() if precision == "highest" else contextlib.nullcontext()
-
-
 def dense(lin: nn.Linear, v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A Linear layer computed in ``dtype`` from its f32 parameters (flax ``dtype``):
     the product is rounded to ``dtype``, then the bias is added, as flax does.
@@ -98,11 +98,12 @@ class ConvBlock(nn.Module):
 
     ``conv_only``/``post`` expose the pre-BN conv activation, the Grad-CAM tap.
     ``sync_group``: the data group whose global batch train-mode BatchNorm
-    normalizes with (None: this rank's batch).
+    normalizes with (None: this rank's batch).  ``phase_train``: the
+    train-mode forward of an even-length input in the phase domain.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 15,
-                 pool: int = 2, dtype: torch.dtype = torch.float32):
+                 pool: int = 2, dtype: torch.dtype = torch.float32, phase_train: bool = False):
         super().__init__()
         self.net = nn.Sequential(
             nn.Conv1d(in_features, features, kernel_size, padding=kernel_size // 2),
@@ -112,6 +113,7 @@ class ConvBlock(nn.Module):
         )
         self.pool = pool
         self.dtype = dtype
+        self.phase_train = phase_train
         self.sync_group = None
 
     def conv_only(self, x: torch.Tensor) -> torch.Tensor:
@@ -177,7 +179,24 @@ class ConvBlock(nn.Module):
             return relu_max_pool2(h)
         return F.relu(F.max_pool1d(h, self.pool))
 
+    def _phase_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The phase path: the phase conv in ``dtype`` (the bias after the
+        rounded product), train-mode BatchNorm over (B, phase, U) through
+        ``_train_batch_norm`` (the ``[B, 2C, U]`` output viewed as ``[2B, C, U]``
+        holds exactly the elements of ``[B, C, T]``, so the statistics, the
+        running update and the data group's sync are the standard path's),
+        ReLU, then the max over the phase axis, whose backward splits a tie
+        evenly as ``jnp.max``'s does (``torch.max(dim)`` would route it to one)."""
+        conv = self.net[0]
+        dt = self.dtype
+        a = phase_conv_cf(x.to(dt), conv.weight.to(dt), conv.bias.to(dt))
+        bsz, c2, u = a.shape
+        h = self._train_batch_norm(a.view(2 * bsz, c2 // 2, u))
+        return torch.relu(h).view(bsz, 2, c2 // 2, u).amax(dim=1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.phase_train and self.pool == 2 and x.shape[2] % 2 == 0:
+            return self._phase_forward(x)
         return self.post(self.conv_only(x))
 
 
@@ -194,11 +213,13 @@ class ECGCNN(nn.Module):
         dtype: torch.dtype = torch.float32,
         torch_init: bool = False,
         generator: Optional[torch.Generator] = None,
+        phase_train: bool = False,
     ):
         super().__init__()
         cins = [in_leads] + list(channels[:-1])
         self.backbone = nn.Sequential(
-            *[ConvBlock(cin, c, dtype=dtype) for cin, c in zip(cins, channels)]
+            *[ConvBlock(cin, c, dtype=dtype, phase_train=phase_train)
+              for cin, c in zip(cins, channels)]
         )
         self.proj = nn.Linear(channels[-1], feat_dim)
         self.head = nn.Linear(feat_dim, num_labels)

@@ -11,8 +11,8 @@ Submodule names follow the reference state dict (``ecg_backbone.backbone.
 ``film_gen.*``, ``head.*``), so a reference ``.pth`` loads with plain
 ``load_state_dict``.  Layout, ``precision``, ``dtype`` (the whole fusion
 tail follows it, ecg_multimodal.py:114-116), ``torch_init`` and the
-``features``/``tail`` split at the last conv's pre-activation are those of
-``ecg_cnn.py``.
+``features``/``tail`` split at the last conv's pre-activation and
+``phase_train`` (passed to the backbone's blocks) are those of ``ecg_cnn.py``.
 """
 
 from __future__ import annotations
@@ -35,11 +35,13 @@ class ECGBackbone(nn.Module):
     """1D-CNN encoder: ``[B, T, in_leads]`` -> z ``[B, feat_dim]``."""
 
     def __init__(self, feat_dim: int = 256, channels: Sequence[int] = (32, 64, 128, 256),
-                 in_leads: int = 12, dtype: torch.dtype = torch.float32):
+                 in_leads: int = 12, dtype: torch.dtype = torch.float32,
+                 phase_train: bool = False):
         super().__init__()
         cins = [in_leads] + list(channels[:-1])
         self.backbone = nn.Sequential(
-            *[ConvBlock(cin, c, dtype=dtype) for cin, c in zip(cins, channels)]
+            *[ConvBlock(cin, c, dtype=dtype, phase_train=phase_train)
+              for cin, c in zip(cins, channels)]
         )
         self.proj = nn.Linear(channels[-1], feat_dim)
         self.dtype = dtype
@@ -89,9 +91,10 @@ class ECGMultimodal(nn.Module):
         dtype: torch.dtype = torch.float32,
         torch_init: bool = False,
         generator: Optional[torch.Generator] = None,
+        phase_train: bool = False,
     ):
         super().__init__()
-        self.ecg_backbone = ECGBackbone(feat_dim, channels, in_leads, dtype)
+        self.ecg_backbone = ECGBackbone(feat_dim, channels, in_leads, dtype, phase_train)
         self.demo_encoder = DemoEncoder(demo_hidden_dim, demo_dim, dtype)
         self.film_gen = nn.Linear(demo_hidden_dim, 2 * feat_dim)
         self.head = nn.Linear(feat_dim, num_labels)

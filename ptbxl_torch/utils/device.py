@@ -44,3 +44,8 @@ def highest_precision() -> Iterator[None]:
         yield
     finally:
         cudnn.allow_tf32, mm.allow_tf32 = saved
+
+
+def precision_scope(precision: Optional[str]):
+    """``highest_precision()`` for ``precision='highest'``, else no change."""
+    return highest_precision() if precision == "highest" else contextlib.nullcontext()

@@ -59,6 +59,12 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.ops.quant, ptbxl_torch.ops.quant_eval, ptbxl_torch.serving\n"
         "import ptbxl_torch.tools.probe_int8, ptbxl_torch.tools.tune_int8\n"
         "import ptbxl_torch.tools.probe_cam_export\n"
+        "import ptbxl_torch.ops.phase_conv, ptbxl_torch.ops.phase_pack\n"
+        "import ptbxl_torch.ops.fast_wgrad, ptbxl_torch.data.fetch\n"
+        "import ptbxl_torch.cli.download_missing_records\n"
+        "import ptbxl_torch.tools.probe_phase_forms, ptbxl_torch.tools.probe_pool\n"
+        "import ptbxl_torch.tools.probe_bwd_breakdown, ptbxl_torch.tools.probe_train_gap\n"
+        "import ptbxl_torch.tools.proto_int8\n"
         f"banned = {FORBIDDEN + ABSENT_ON_GPU + DRAWN!r}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(bad)\n"
@@ -121,8 +127,23 @@ def test_port_file_list_is_complete():
                  "ptbxl_torch/parallel/dryrun.py", "ptbxl_torch/ops/quant.py",
                  "ptbxl_torch/ops/quant_eval.py", "ptbxl_torch/serving.py",
                  "ptbxl_torch/tools/probe_int8.py", "ptbxl_torch/tools/tune_int8.py",
-                 "ptbxl_torch/tools/probe_cam_export.py"):
+                 "ptbxl_torch/tools/probe_cam_export.py", "ptbxl_torch/ops/phase_conv.py",
+                 "ptbxl_torch/ops/phase_pack.py", "ptbxl_torch/ops/fast_wgrad.py",
+                 "ptbxl_torch/data/fetch.py", "ptbxl_torch/cli/download_missing_records.py",
+                 "ptbxl_torch/tools/probe_phase_forms.py", "ptbxl_torch/tools/probe_pool.py",
+                 "ptbxl_torch/tools/probe_bwd_breakdown.py",
+                 "ptbxl_torch/tools/probe_train_gap.py", "ptbxl_torch/tools/proto_int8.py"):
         assert path in PORT_FILES, path
+
+
+def test_fetch_reads_the_csv_without_pandas():
+    """The JAX fetcher reads ptbxl_database.csv with pandas, which the GPU
+    machine lacks; the port's reads it through utils/table.py."""
+    tree = ast.parse(open(os.path.join(HERE, "ptbxl_torch/data/fetch.py")).read())
+    modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    modules += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in modules if m.split(".")[0] == "pandas"]
+    assert "ptbxl_torch.utils.table" in modules
 
 
 @pytest.mark.parametrize("path", PORT_FILES)

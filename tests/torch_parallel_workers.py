@@ -35,3 +35,33 @@ def fit(state_dict, out_dir, epochs, batch_size):
                    ckpt_path=os.path.join(out_dir, "best.npz"), config_path="c.yaml",
                    classes=CLASSES, pth_export=False, train_desc=None, eval_desc=None))
     return dist.get_rank() if dist.is_initialized() else None
+
+
+def phase_step(state_dict, batch, sharded):
+    """One SGD step (lr 1e-3) of the FiLM model with ``phase_train=True`` on the
+    global ``batch``: over a (world, 1) mesh when ``sharded``, else unsharded.
+    Returns the loss, the full state after the step and the pool backward's calls."""
+    import torch
+
+    from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
+    from ptbxl_torch.ops import relu_pool
+    from ptbxl_torch.parallel.mesh import make_mesh, shard_model
+    from ptbxl_torch.training.loop import make_train_step
+    from ptbxl_torch.training.train_state import TrainState
+
+    model = ECGMultimodal(num_labels=5, phase_train=True)
+    model.load_state_dict(state_dict)
+    mesh = None
+    if sharded:
+        mesh = make_mesh(n_model=1)
+        shard_model(model, mesh)
+    calls = []
+    orig = relu_pool.relu_pool_bwd
+    relu_pool.relu_pool_bwd = lambda h, g: calls.append(1) or orig(h, g)
+    try:
+        state = TrainState(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+        _, loss = make_train_step(multimodal=True, mesh=mesh)(state, batch)
+    finally:
+        relu_pool.relu_pool_bwd = orig
+    return {"loss": float(loss), "pool_bwds": len(calls),
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
