@@ -39,7 +39,11 @@ artifacts; then the phase-domain training alternatives at full width: a
 (f32 and bf16, K6 one launch a step against four), ``phase_conv``,
 ``conv1d_fast_wgrad`` at every block's geometry and the phase-packed front
 at B=8192; the four training-backward probes and ``proto_int8``; CLI 01
-against a loopback HTTP mirror of the synthetic tree), checks them against the golden
+against a loopback HTTP mirror of the synthetic tree; the WFDB codec fuzz, 1,600 random
+records of every format; the training showdown: the port trained to completion on
+the synthetic mini-PTB-XL with the stored configs of JAX's committed artifacts
+``outputs/showdown/jax*.json``, labels equal to theirs, each family's final
+macro-AUROC within 0.005 of JAX's), checks them against the golden
 outputs, the demo-pack parity gate, the JAX scripts' CSV schemas, ``Predictor``,
 ``GradCAM``, ``compute_metrics`` and ``per_class_scores``, and times the kernels, the
 train step and the epoch beside their plain versions, the framework (cuDNN,
@@ -2346,6 +2350,114 @@ def phase_fetch(tree: str, work: str) -> dict:
             "part_files_left": 0, "wall_s": wall_s}
 
 
+FUZZ_SEEDS = (0, 1, 2, 3)
+FUZZ_TRIALS = 400  # a seed
+# The showdown phase's runs: the port with each JAX artifact's stored config
+# (baseline, the six baseline-hard seeds, multimodal, AF); `python -m
+# ptbxl_torch.tools.showdown run --all` runs all 32, the `_ti`, mm-hard, AF-hard
+# and baseline ts43-47 artifacts too.  One seed runs twice: the spread a seed
+# carries on the card (cuDNN's backward is not deterministic).
+SHOWDOWN_RUNS = ("jax.json", "jax_hard.json", "jax_hard_ts43.json", "jax_hard_ts44.json",
+                 "jax_hard_ts45.json", "jax_hard_ts46.json", "jax_hard_ts47.json",
+                 "jax_mm.json", "jax_af.json")
+SHOWDOWN_REPEAT = "jax_hard_ts45.json"
+SHOWDOWN_AUROC_BUDGET = 0.005  # the north star: final macro-AUROC within 0.005 of JAX's
+
+
+def phase_fuzz_wfdb() -> dict:
+    """The port's WFDB codec under FUZZ_SEEDS x FUZZ_TRIALS random records
+    (``tools/fuzz_wfdb.py``'s trials) on this machine's Python and numpy: no
+    mismatch with the oracle."""
+    from ptbxl_torch.tools import fuzz_wfdb
+
+    t0 = time.perf_counter()
+    failures = [f for seed in FUZZ_SEEDS for f in fuzz_wfdb.fuzz(FUZZ_TRIALS, seed)]
+    wall_s = time.perf_counter() - t0
+    if failures:
+        raise AssertionError(f"fuzz_wfdb: {len(failures)} mismatches, first {failures[0]}")
+    n = FUZZ_TRIALS * len(FUZZ_SEEDS)
+    return {"phase": "fuzz_wfdb", "trials": n, "seeds": list(FUZZ_SEEDS), "mismatches": 0,
+            "wall_s": wall_s, "trials_per_s": n / wall_s, "python": sys.version.split()[0],
+            "numpy": np.__version__}
+
+
+def phase_showdown() -> dict:
+    """The training showdown on the card against JAX's committed artifacts.
+
+    The regenerated labels equal every ``test_y`` / ``val_y`` the JAX
+    artifacts store; the port trains SHOWDOWN_RUNS with their stored configs
+    and each family's ``compare`` holds its AUROC deficit (paired seed means
+    for hard) within SHOWDOWN_AUROC_BUDGET; K6, counted from 0 over the
+    runs, launches exactly 4 times a train step; SHOWDOWN_REPEAT runs twice.
+    """
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+    from ptbxl_torch.tools import showdown as sd
+
+    t_phase = time.perf_counter()
+    cfgs = {f: sd.jax_config(os.path.join(sd.JAX_DIR, f))
+            for f in sorted(os.listdir(sd.JAX_DIR)) if sd.JAX_ARTIFACT.match(f)}
+    labels_equal = []
+    for f, cfg in cfgs.items():
+        with open(os.path.join(sd.JAX_DIR, f)) as fh:
+            blob = json.load(fh)
+        splits = [s for s in ("test", "val") if blob.get(f"{s}_y")]
+        if not splits:
+            continue
+        data = np.load(sd.ensure_dataset(cfg))
+        for s in splits:
+            want = sd.arch_labels(data[f"y_{s}"], cfg["arch"])
+            if not np.array_equal(np.asarray(blob[f"{s}_y"], np.float32), want):
+                raise AssertionError(f"showdown: {f}'s {s}_y differs from the regenerated labels")
+            labels_equal.append(f"{f}:{s}")
+    data_s = time.perf_counter() - t_phase
+
+    k6.launches = 0
+    runs = {f: sd.run_port(cfgs[f], device="cuda") for f in SHOWDOWN_RUNS}
+    families = {}
+    for f in SHOWDOWN_RUNS:
+        families.setdefault(sd.family_of(cfgs[f]), f)
+    reports = {fam: sd.compare(cfgs[f]) for fam, f in families.items()}
+    again = sd.run_port(cfgs[SHOWDOWN_REPEAT], device="cuda")
+    launches, steps = k6.launches, sum(r["train_steps"] for r in runs.values())
+    steps += again["train_steps"]
+    if launches != 4 * steps:
+        raise AssertionError(f"showdown: {launches} relu_pool_bwd launches for {steps} steps")
+
+    out_families = {}
+    for fam, rep in reports.items():
+        auroc = rep["metrics"]["auroc"]
+        deficit = auroc.get("deficit_vs_jax_means", auroc["deficit_vs_jax"])
+        out_families[fam or "baseline"] = {
+            "port_auroc": auroc.get("mean", {}).get("port", auroc["port"]),
+            "jax_auroc": auroc.get("mean", {}).get("jax", auroc["jax"]),
+            "auroc_deficit": deficit, "welch_t": {m: e.get("welch_t")
+                                                  for m, e in rep["metrics"].items()},
+            "seeds": auroc.get("n", 1),
+            "deficit": {m: e.get("deficit_vs_jax_means", e["deficit_vs_jax"])
+                        for m, e in rep["metrics"].items()},
+            "within_budget": rep["within_budget_per_metric"],
+            "insignificant": [m for m, e in rep["metrics"].items()
+                              if e.get("insignificant_deficit")]}
+        if deficit > SHOWDOWN_AUROC_BUDGET:
+            raise AssertionError(f"showdown: family '{fam or 'baseline'}' AUROC deficit "
+                                 f"{deficit} > {SHOWDOWN_AUROC_BUDGET}")
+    first = runs[SHOWDOWN_REPEAT]
+    return {
+        "phase": "showdown", "device": first["device"], "labels_equal": labels_equal,
+        "families": out_families,
+        "runs": {f: {"auroc": r["test_auroc_macro"], "auprc": r["test_auprc_macro"],
+                     "f1": r["test_f1_macro"], "best_epoch": r["best_epoch"],
+                     "epochs": r["config"]["epochs"], "wall_s": r["wall_s"]}
+                 for f, r in runs.items()},
+        "repeat": {"file": SHOWDOWN_REPEAT, "wall_s": again["wall_s"],
+                   "best_epochs": [first["best_epoch"], again["best_epoch"]],
+                   "abs_delta_auroc": abs(again["test_auroc_macro"] - first["test_auroc_macro"]),
+                   "max_abs_delta_test_probs": float(np.abs(
+                       np.asarray(again["test_probs"]) - np.asarray(first["test_probs"])).max())},
+        "train_steps": steps, "launches": {"relu_pool_bwd": launches},
+        "data_s": data_s, "phase_s": time.perf_counter() - t_phase}
+
+
 def split_breakdown(launches: list) -> dict:
     """K4's per-launch device times: the stats pass, each ``wgmma`` block and
     the tail.  Raises if the route launched any kernel but the port's own
@@ -2917,6 +3029,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         emit(phase_fetch(tree, work))
 
+    # -- phase 11: the WFDB codec fuzz, then the training showdown against JAX's
+    # committed artifacts (K6 four launches a step)
+    emit(phase_fuzz_wfdb())
+    showdown_info = phase_showdown()
+    emit(showdown_info)
+
     big = times[BIG]
     one = times[1]
     sources = {
@@ -2971,14 +3089,16 @@ def main(argv=None) -> int:
         kernels.append(entry)
     # K6: one B=64 train step's four launches; launches on the training path, on
     # the Grad-CAM path (baseline + multimodal), on CLIs 11, 13 and the demo CLI
-    # and on the phase_train steps (one a step: the last block's pool)
+    # on the phase_train steps (one a step: the last block's pool) and on the
+    # showdown's training runs (four a step)
     t32, t16 = k6_times["float32"], k6_times["bfloat16"]
     k6_by_path = {"train": train_info["launches"]["relu_pool_bwd"], "grad_cam": launches_cam,
                   "grad_cam_cli": sum(
                       analysis_info["grad_cam_cli"]["relu_pool_bwd_launches"].values()),
                   "train_extras": extras_info["launches"]["relu_pool_bwd"],
                   "ddp": ddp_info["one_rank_nccl"]["relu_pool_bwd_launches"],
-                  "phase_train": domain_info["relu_pool_bwd_launches"]["phase_train"]}
+                  "phase_train": domain_info["relu_pool_bwd_launches"]["phase_train"],
+                  "showdown": showdown_info["launches"]["relu_pool_bwd"]}
     kernels.append({
         "name": "relu_pool_bwd", "route": "cuda", "source": "ptbxl_torch/csrc/relu_pool.cu",
         "replaces": "ptbxl_tpu/ops/relu_pool.py:65",

@@ -148,6 +148,20 @@ def _f1(t: np.ndarray, p: np.ndarray) -> float:
     return 2.0 * tp / denom if denom > 0 else 0.0
 
 
+def f1_macro(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """``f1_score(y_true, y_pred, average='macro', zero_division=0)`` of 0/1
+    labels and predictions of shape [N, L] (or [N])."""
+    t = np.asarray(y_true) == 1
+    p = np.asarray(y_pred).astype(bool)
+    if t.ndim == 1:
+        t, p = t[:, None], p[:, None]
+    if t.shape[1] == 1:  # scikit-learn's binary case: macro over the classes present
+        t, p = t[:, 0], p[:, 0]
+        classes = [c for c in (False, True) if (t == c).any() or (p == c).any()]
+        return float(np.mean([_f1(t == c, p == c) for c in classes]))
+    return float(np.mean([_f1(t[:, j], p[:, j]) for j in range(t.shape[1])]))
+
+
 def compute_metrics(y_true: np.ndarray, y_prob: np.ndarray, threshold: float = 0.5
                     ) -> Dict[str, float]:
     """Macro AUROC / AUPRC / F1 for ``y_true``, ``y_prob`` of shape [N, L] (or [N])."""
@@ -155,7 +169,6 @@ def compute_metrics(y_true: np.ndarray, y_prob: np.ndarray, threshold: float = 0
     y_prob = np.asarray(y_prob)
     if y_true.ndim == 1:
         y_true, y_prob = y_true[:, None], y_prob[:, None]
-    y_pred = y_prob >= threshold
     cols = range(y_true.shape[1])
     if np.isfinite(y_prob).all():
         metrics = {
@@ -165,11 +178,5 @@ def compute_metrics(y_true: np.ndarray, y_prob: np.ndarray, threshold: float = 0
         }
     else:  # scikit-learn raises on a non-finite score; the JAX function gives nan
         metrics = {"auroc_macro": float("nan"), "auprc_macro": float("nan")}
-    t = y_true == 1
-    if y_true.shape[1] == 1:  # scikit-learn's binary case: macro over the classes present
-        t, p = t[:, 0], y_pred[:, 0]
-        classes = [c for c in (False, True) if (t == c).any() or (p == c).any()]
-        metrics["f1_macro"] = float(np.mean([_f1(t == c, p == c) for c in classes]))
-    else:
-        metrics["f1_macro"] = float(np.mean([_f1(t[:, j], y_pred[:, j]) for j in cols]))
+    metrics["f1_macro"] = f1_macro(y_true, y_prob >= threshold)
     return metrics

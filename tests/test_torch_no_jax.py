@@ -65,6 +65,7 @@ def test_import_leaves_jax_unloaded():
         "import ptbxl_torch.tools.probe_phase_forms, ptbxl_torch.tools.probe_pool\n"
         "import ptbxl_torch.tools.probe_bwd_breakdown, ptbxl_torch.tools.probe_train_gap\n"
         "import ptbxl_torch.tools.proto_int8\n"
+        "import ptbxl_torch.tools.fuzz_wfdb, ptbxl_torch.tools.showdown\n"
         f"banned = {FORBIDDEN + ABSENT_ON_GPU + DRAWN!r}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "print(bad)\n"
@@ -132,7 +133,8 @@ def test_port_file_list_is_complete():
                  "ptbxl_torch/data/fetch.py", "ptbxl_torch/cli/download_missing_records.py",
                  "ptbxl_torch/tools/probe_phase_forms.py", "ptbxl_torch/tools/probe_pool.py",
                  "ptbxl_torch/tools/probe_bwd_breakdown.py",
-                 "ptbxl_torch/tools/probe_train_gap.py", "ptbxl_torch/tools/proto_int8.py"):
+                 "ptbxl_torch/tools/probe_train_gap.py", "ptbxl_torch/tools/proto_int8.py",
+                 "ptbxl_torch/tools/fuzz_wfdb.py", "ptbxl_torch/tools/showdown.py"):
         assert path in PORT_FILES, path
 
 
