@@ -40,10 +40,14 @@ artifacts; then the phase-domain training alternatives at full width: a
 ``conv1d_fast_wgrad`` at every block's geometry and the phase-packed front
 at B=8192; the four training-backward probes and ``proto_int8``; CLI 01
 against a loopback HTTP mirror of the synthetic tree; the WFDB codec fuzz, 1,600 random
-records of every format; the training showdown: the port trained to completion on
+records of every format; the JAX package's identical-seeds contract on the card
+(one epoch of the tree's train split twice at seed 3, bit for bit, and seed 4
+apart, for the ECGCNN in f32 and bf16 and the multimodal model); the training
+showdown: the port trained to completion on
 the synthetic mini-PTB-XL with the stored configs of JAX's committed artifacts
 ``outputs/showdown/jax*.json``, labels equal to theirs, each family's final
-macro-AUROC within 0.005 of JAX's), checks them against the golden
+macro-AUROC within 0.005 of JAX's, one seed twice with equal test
+probabilities), checks them against the golden
 outputs, the demo-pack parity gate, the JAX scripts' CSV schemas, ``Predictor``,
 ``GradCAM``, ``compute_metrics`` and ``per_class_scores``, and times the kernels, the
 train step and the epoch beside their plain versions, the framework (cuDNN,
@@ -663,7 +667,8 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
     batch with one ``inf`` sample (it raises before the update) and its cost a
     step, the signal ops on [64, 5000, 12] against their CPU result (1e-5, unit
     normal input), and two epochs from equal seeds: the max |diff| of the head
-    weights is measured, not gated (cuDNN's wgrad need not be bit-deterministic).
+    weights is reported (0 since the step pins cuDNN's deterministic
+    algorithms; the ``determinism`` phase gates it).
     K6's launches are counted from 0 over the phase."""
     import io
     import re
@@ -819,8 +824,9 @@ def phase_ddp(seed: int, tree: str, work: str) -> dict:
     noise (~1e-9), which AdamW's normalized update turns into moves of up to
     ~lr a step; train-mode BatchNorm cancels them, but eval mode subtracts a
     running mean that lags them, so the val outputs follow the noise of the
-    sums' order (sharded or not) and of cuDNN's wgrad (which is not
-    bit-deterministic: the second unsharded epoch shows that spread).  The
+    sums' order (sharded or not; the second unsharded epoch, which the
+    step's deterministic cuDNN makes bit-equal to the first, shows that this
+    spread is the sharding's alone).  The
     eval path's gather is held exactly instead: the val probabilities of one
     checkpoint through the eval step on the two ranks against one process
     (1e-5) and their rank metrics."""
@@ -1392,6 +1398,19 @@ train:
   out_dir: {out_dir}
 """)
     return path
+
+
+@contextlib.contextmanager
+def _cudnn_flags_kept():
+    """cuDNN's ``deterministic`` and ``benchmark`` flags restored on exit: the
+    CLIs' ``set_seed`` pins them for the process, as the reference's does, and
+    the phases after the CLIs time cuDNN at torch's defaults."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def _run_cli(main, argv) -> tuple:
@@ -2350,13 +2369,97 @@ def phase_fetch(tree: str, work: str) -> dict:
             "part_files_left": 0, "wall_s": wall_s}
 
 
+DET_B = 64  # the determinism phase's batch (configs/ecg_baseline.yaml's)
+DET_CASES = (("ecgcnn", "f32"), ("ecgcnn", "bf16"), ("multimodal", "f32"))
+
+
+def _seed_epoch(ds, arch: str, dtype_name: str, seed: int) -> tuple:
+    """tests/test_determinism.py's ``_one_epoch`` on the card: a model from
+    ``seed``, one shuffled epoch of ``ds`` (``BatchSource`` seeded with it);
+    (epoch loss, state dict, train steps)."""
+    from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
+    from ptbxl_torch.models.factory import build_ecgcnn, build_multimodal
+    from ptbxl_torch.training.loop import make_train_step, train_one_epoch
+    from ptbxl_torch.training.train_state import create_train_state
+
+    mm = arch == "multimodal"
+    dtype, prec = (torch.float32, "highest") if dtype_name == "f32" else (torch.bfloat16,
+                                                                          "default")
+    model = (build_multimodal if mm else build_ecgcnn)(num_labels=5, seed=seed,
+                                                       precision=prec, dtype=dtype)
+    state = create_train_state(model, TRAIN_LR, TRAIN_WD)
+    src = BatchSource(ds, DET_B, shuffle=True, seed=seed)
+    _, loss = train_one_epoch(state, make_train_step(multimodal=mm),
+                              device_prefetch(src.epoch(0)))
+    return loss, {k: v.detach().clone() for k, v in model.state_dict().items()}, state.step
+
+
+def _state_max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def phase_determinism(tree: str) -> dict:
+    """The JAX package's identical-seeds contract (tests/test_determinism.py)
+    on the card: for each of DET_CASES, one epoch of the tree's train split at
+    seed 3 twice gives the same loss and every state-dict entry bit for bit,
+    and seed 4 another loss; K6, counted from 0 over those epochs, launches
+    four times a step.  Then, for the f32 ECGCNN, the same two epochs with
+    the train step's deterministic scope replaced by a no-op scope and
+    cuDNN's global flags at torch's defaults (what the step did before it
+    pinned cuDNN): their spread, reported."""
+    from ptbxl_torch.data import PTBXLDataset, PTBXLECGMultimodalDataset
+    from ptbxl_torch.ops.kernels import relu_pool as k6
+    from ptbxl_torch.training import loop
+
+    t0 = time.perf_counter()
+    sets = {"ecgcnn": PTBXLDataset(tree, "train", CLASSES),
+            "multimodal": PTBXLECGMultimodalDataset(tree, "train", CLASSES)}
+    cases, steps = {}, 0
+    k6.launches = 0
+    for arch, dtype_name in DET_CASES:
+        (l1, s1, n1), (l2, s2, n2) = (_seed_epoch(sets[arch], arch, dtype_name, 3)
+                                      for _ in range(2))
+        l4, _, n4 = _seed_epoch(sets[arch], arch, dtype_name, 4)
+        steps += n1 + n2 + n4
+        name = f"{arch} {dtype_name}"
+        unequal = [k for k in s1 if not torch.equal(s1[k], s2[k])]
+        if l1 != l2 or unequal:
+            raise AssertionError(f"determinism {name}: seed 3 twice gave losses {l1} and {l2}, "
+                                 f"state-dict entries apart: {unequal[:5]}")
+        if l4 == l1:
+            raise AssertionError(f"determinism {name}: seeds 3 and 4 gave the same loss {l1}")
+        cases[name] = {"records": len(sets[arch]), "steps": n1,
+                       "loss_seed3": [l1, l2], "loss_seed4": l4, "state_dict_entries": len(s1),
+                       "state_dict_max_abs_diff": _state_max_diff(s1, s2)}
+    launches = k6.launches
+    if launches != 4 * steps:
+        raise AssertionError(f"determinism: {launches} relu_pool_bwd launches for {steps} steps")
+    cudnn, scoped = torch.backends.cudnn, loop.deterministic_algorithms
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = False, False
+    loop.deterministic_algorithms = contextlib.nullcontext
+    try:
+        (l1, s1, _), (l2, s2, _) = (_seed_epoch(sets["ecgcnn"], "ecgcnn", "f32", 3)
+                                    for _ in range(2))
+    finally:
+        loop.deterministic_algorithms = scoped
+        cudnn.deterministic, cudnn.benchmark = saved
+    return {"phase": "determinism", "batch": DET_B, "cases": cases, "train_steps": steps,
+            "launches": {"relu_pool_bwd": launches},
+            "ecgcnn_f32_without_the_scope": {
+                "loss_abs_diff": abs(l1 - l2), "state_dict_max_abs_diff": _state_max_diff(s1, s2),
+                "entries_apart": sum(not torch.equal(s1[k], s2[k]) for k in s1)},
+            "phase_s": time.perf_counter() - t0}
+
+
 FUZZ_SEEDS = (0, 1, 2, 3)
 FUZZ_TRIALS = 400  # a seed
 # The showdown phase's runs: the port with each JAX artifact's stored config
 # (baseline, the six baseline-hard seeds, multimodal, AF); `python -m
 # ptbxl_torch.tools.showdown run --all` runs all 32, the `_ti`, mm-hard, AF-hard
-# and baseline ts43-47 artifacts too.  One seed runs twice: the spread a seed
-# carries on the card (cuDNN's backward is not deterministic).
+# and baseline ts43-47 artifacts too.  One seed runs twice: the train and eval
+# steps hold cuDNN to deterministic algorithms, so the second run gives the same
+# best epoch and the same test probabilities bit for bit.
 SHOWDOWN_RUNS = ("jax.json", "jax_hard.json", "jax_hard_ts43.json", "jax_hard_ts44.json",
                  "jax_hard_ts45.json", "jax_hard_ts46.json", "jax_hard_ts47.json",
                  "jax_mm.json", "jax_af.json")
@@ -2388,7 +2491,8 @@ def phase_showdown() -> dict:
     artifacts store; the port trains SHOWDOWN_RUNS with their stored configs
     and each family's ``compare`` holds its AUROC deficit (paired seed means
     for hard) within SHOWDOWN_AUROC_BUDGET; K6, counted from 0 over the
-    runs, launches exactly 4 times a train step; SHOWDOWN_REPEAT runs twice.
+    runs, launches exactly 4 times a train step; SHOWDOWN_REPEAT runs twice,
+    with the same best epoch and test probabilities equal bit for bit.
     """
     from ptbxl_torch.ops.kernels import relu_pool as k6
     from ptbxl_torch.tools import showdown as sd
@@ -2442,6 +2546,13 @@ def phase_showdown() -> dict:
             raise AssertionError(f"showdown: family '{fam or 'baseline'}' AUROC deficit "
                                  f"{deficit} > {SHOWDOWN_AUROC_BUDGET}")
     first = runs[SHOWDOWN_REPEAT]
+    delta_probs = float(np.abs(np.asarray(again["test_probs"])
+                               - np.asarray(first["test_probs"])).max())
+    if again["best_epoch"] != first["best_epoch"] or not np.array_equal(
+            again["test_probs"], first["test_probs"]):
+        raise AssertionError(f"showdown: {SHOWDOWN_REPEAT} twice: best epochs "
+                             f"{first['best_epoch']} and {again['best_epoch']}, max |d test "
+                             f"prob| {delta_probs}")
     return {
         "phase": "showdown", "device": first["device"], "labels_equal": labels_equal,
         "families": out_families,
@@ -2452,8 +2563,7 @@ def phase_showdown() -> dict:
         "repeat": {"file": SHOWDOWN_REPEAT, "wall_s": again["wall_s"],
                    "best_epochs": [first["best_epoch"], again["best_epoch"]],
                    "abs_delta_auroc": abs(again["test_auroc_macro"] - first["test_auroc_macro"]),
-                   "max_abs_delta_test_probs": float(np.abs(
-                       np.asarray(again["test_probs"]) - np.asarray(first["test_probs"])).max())},
+                   "max_abs_delta_test_probs": delta_probs},
         "train_steps": steps, "launches": {"relu_pool_bwd": launches},
         "data_s": data_s, "phase_s": time.perf_counter() - t_phase}
 
@@ -3004,7 +3114,7 @@ def main(argv=None) -> int:
     data_info, datasets = phase_data(tree)
     data_info["tree_s"] = tree_s
     emit(data_info)
-    with tempfile.TemporaryDirectory() as work:
+    with tempfile.TemporaryDirectory() as work, _cudnn_flags_kept():
         emit(phase_cli_train(tree, work, args.seed, datasets))
         emit(phase_cli_eval(tree, work))
         analysis_info = phase_cli_analysis(tree, work)
@@ -3029,9 +3139,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         emit(phase_fetch(tree, work))
 
-    # -- phase 11: the WFDB codec fuzz, then the training showdown against JAX's
-    # committed artifacts (K6 four launches a step)
+    # -- phase 11: the WFDB codec fuzz, the identical-seeds contract, then the
+    # training showdown against JAX's committed artifacts (K6 four launches a step)
     emit(phase_fuzz_wfdb())
+    det_info = phase_determinism(tree)
+    emit(det_info)
     showdown_info = phase_showdown()
     emit(showdown_info)
 
@@ -3090,7 +3202,7 @@ def main(argv=None) -> int:
     # K6: one B=64 train step's four launches; launches on the training path, on
     # the Grad-CAM path (baseline + multimodal), on CLIs 11, 13 and the demo CLI
     # on the phase_train steps (one a step: the last block's pool) and on the
-    # showdown's training runs (four a step)
+    # showdown's training runs and the determinism phase's epochs (four a step)
     t32, t16 = k6_times["float32"], k6_times["bfloat16"]
     k6_by_path = {"train": train_info["launches"]["relu_pool_bwd"], "grad_cam": launches_cam,
                   "grad_cam_cli": sum(
@@ -3098,7 +3210,8 @@ def main(argv=None) -> int:
                   "train_extras": extras_info["launches"]["relu_pool_bwd"],
                   "ddp": ddp_info["one_rank_nccl"]["relu_pool_bwd_launches"],
                   "phase_train": domain_info["relu_pool_bwd_launches"]["phase_train"],
-                  "showdown": showdown_info["launches"]["relu_pool_bwd"]}
+                  "showdown": showdown_info["launches"]["relu_pool_bwd"],
+                  "determinism": det_info["launches"]["relu_pool_bwd"]}
     kernels.append({
         "name": "relu_pool_bwd", "route": "cuda", "source": "ptbxl_torch/csrc/relu_pool.cu",
         "replaces": "ptbxl_tpu/ops/relu_pool.py:65",

@@ -452,28 +452,35 @@ def bench_train_phases(clock: Clock, batch_size: int, dtype_name: str = "bf16",
     return out
 
 
-CEIL_ROUNDS = 3  # bench_ceiling's interleaved rounds of prefix timings
+CEIL_ROUNDS = 3  # bench_ceiling's interleaved rounds of part timings
 
 
 def bench_ceiling(clock: Clock, batch_size: int = 11264, iters: int = 5) -> dict:
     """The shipping int8 model's attainable ceiling on this card (``bench_ceiling``, :901).
 
-    A per-block decomposition by progressive prefixes, each timed at
-    ``batch_size`` in the forward's own chunks of records: P0 the one-pass
-    z-score, P1..P4 plus blocks 0..3 (``quant._conv_stack``), P5 the whole
-    forward (mean, proj, head); a block's time is the difference of its
-    prefixes.  Each block is bounded by this card's data-sheet peaks: its
-    conv operations over the dense int8 (an int8 layer) or bf16 rate, or its
-    input read once and its output written once (int8 where the consumer is
-    int8, else bf16; the z-score reads the bf16 wire and writes bf16) over
-    the HBM rate, whichever is longer: ``bound_us``, and
-    ``analytic_ceiling_rps`` is 1 / their sum.  ``ratcheted_bound_us`` is
-    the least of that bound and the measurement (a measurement is
-    attainable), and ``ceiling_rps`` 1 / their sum, as ``bench.py`` ratchets.
+    A per-block decomposition, each part timed alone at ``batch_size`` in the
+    forward's own chunks of records: the one-pass z-score on the raw batch
+    with block 0's bf16 operand (``quant.block0_operand``), blocks 0..3
+    (``quant.conv_stack_block``) each on its own input, and the tail (mean,
+    proj, head; ``quant.dense_tail``) on the last block's output.  The inputs
+    come from one untimed forward (``quant.conv_stack_inputs``), kept chunk
+    by chunk in the dtype and layout ``quant._conv_stack`` hands each block,
+    so no part's time is a difference of two timings.  Each part's time is
+    its least over ``CEIL_ROUNDS`` interleaved rounds (host contention only
+    adds time); ``config.decomposition_check`` is the parts' sum over one
+    whole forward timed the same way (reported, not gated).  Each block is
+    bounded by this card's data-sheet peaks: its conv operations over the
+    dense int8 (an int8 layer) or bf16 rate, or its input read once and its
+    output written once (int8 where the consumer is int8, else bf16; the
+    z-score reads the bf16 wire and writes bf16) over the HBM rate, whichever
+    is longer: ``bound_us``, and ``analytic_ceiling_rps`` is 1 / their sum.
+    ``ratcheted_bound_us`` is the least of that bound and the measurement (a
+    measurement is attainable), and ``ceiling_rps`` 1 / their sum, as
+    ``bench.py`` ratchets.
     """
     from ptbxl_torch.models.params_io import load_checkpoint
-    from ptbxl_torch.ops.preprocess import zscore_per_lead_batch_onepass
-    from ptbxl_torch.ops.quant import (_conv_stack, chunk_records, make_quantized_forward,
+    from ptbxl_torch.ops.quant import (block0_operand, chunk_records, conv_stack_block,
+                                       conv_stack_inputs, dense_tail, make_quantized_forward,
                                        quantize_model, split_meta, to_device)
 
     dev = clock.device
@@ -484,29 +491,25 @@ def bench_ceiling(clock: Clock, batch_size: int = 11264, iters: int = 5) -> dict
     b = _n(batch_size)
     x = _random_batch(b, torch.bfloat16, dev)
     n = chunk_records(T_FULL, arrs, layers)
+    chunks = x.split(n)
+    with torch.no_grad():  # each part's input, chunk by chunk, from one untimed forward
+        per_chunk = [conv_stack_inputs(arrs, xc, n_blocks, layers) for xc in chunks]
+    inputs = [list(chunks)] + [list(hs) for hs in zip(*per_chunk)]
 
-    def prefix(k):
-        if k == n_blocks + 1:
-            return lambda: full(arrs, x)
+    def part(k):
+        if k == 0:
+            return lambda: [block0_operand(xc, layers) for xc in inputs[0]]
+        if k <= n_blocks:
+            return lambda: [conv_stack_block(arrs, h, k - 1, n_blocks, layers)
+                            for h in inputs[k]]
+        return lambda: [dense_tail(arrs, h.transpose(1, 2)) for h in inputs[k]]
 
-        def run():
-            for xc in x.split(n):
-                h = zscore_per_lead_batch_onepass(xc)
-                if k:
-                    _conv_stack(arrs, h, k, layers)
-                else:
-                    h.to(torch.bfloat16)  # block 0's bf16 operand
-        return run
-
-    # the prefixes timed in interleaved rounds, each taking its least time: a
-    # block is a difference of two prefixes, and host contention only adds time
-    fns = [prefix(k) for k in range(n_blocks + 2)]
+    fns = [part(k) for k in range(n_blocks + 2)] + [lambda: full(arrs, x)]
     with torch.no_grad():
         rounds = [[clock.ms(f, _iters(iters)) for f in fns] for _ in range(CEIL_ROUNDS)]
     per_rec = [min(ts) / 1e3 / b for ts in zip(*rounds)]
     names = ["zscore"] + [f"block{i}" for i in range(n_blocks)] + ["tail"]
-    meas = [per_rec[0]] + [max(per_rec[k + 1] - per_rec[k], 1e-12)
-                           for k in range(n_blocks + 1)]
+    meas, whole = per_rec[:-1], per_rec[-1]
     cins, couts = [12, 32, 64, 128], [32, 64, 128, 256]
     bounds = [(T_FULL * LEADS * (2 + 2) / H100_PEAKS["bytes"], "memory")]
     for i in range(n_blocks):
@@ -524,7 +527,8 @@ def bench_ceiling(clock: Clock, batch_size: int = 11264, iters: int = 5) -> dict
     total_b = sum(r["ratcheted_bound_us"] for r in rows) / 1e6
     total_m = sum(meas)
     return {"config": {"int8_layers": list(layers), "batch": b, "iters": _iters(iters),
-                       "rounds": CEIL_ROUNDS, "chunk_records": n},
+                       "rounds": CEIL_ROUNDS, "chunk_records": n,
+                       "decomposition_check": total_m / whole},
             "peaks_assumed": {"int8_dense_tops": H100_PEAKS["int8"] / 1e12,
                               "bf16_dense_tflops": H100_PEAKS["bf16"] / 1e12,
                               "hbm_GBps": H100_PEAKS["bytes"] / 1e9,

@@ -229,6 +229,31 @@ def bf16_conv1d(h: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
         return F.conv1d(hb.float(), wc.float(), padding=PAD).to(torch.bfloat16)
 
 
+def conv_stack_block(q: QParams, h: torch.Tensor, i: int, n_blocks: int,
+                     int8_layers: Tuple[int, ...]) -> torch.Tensor:
+    """Block ``i`` of ``_conv_stack``: its channel-major input [B, C, T] (int8
+    when block ``i`` is int8 and block ``i - 1`` requantized, else the previous
+    block's bf16 or the z-score's f32) -> its pooled output [B, Cout, T // 2],
+    contiguous unless ``i`` is the last block (an int8 block's output is a
+    channel-major view of its channels-last rows)."""
+    bf16 = torch.bfloat16
+    w, b = q[f"w{i}"], q[f"b{i}"].to(bf16)
+    nxt = q.get(f"sx{i + 1}") if i + 1 in int8_layers else None
+    if i in int8_layers:
+        xq = h if h.dtype == torch.int8 else quantize_act(h, q[f"sx{i}"][:, None])
+        y = int8_conv1d(xq.transpose(1, 2).contiguous(), int8_weight_matrix(w))
+        a = torch.relu(y.to(bf16) * q[f"sw{i}"].to(bf16) + b)  # [B, T, Cout]
+        if nxt is not None:
+            a = quantize_act(a, nxt)
+        h = _pool2(a).transpose(1, 2)
+    else:
+        a = torch.relu(bf16_conv1d(h, w.to(bf16).permute(2, 1, 0)) + b[:, None])
+        if nxt is not None:
+            a = quantize_act(a, nxt[:, None])
+        h = a.unfold(2, 2, 2).amax(-1)  # [B, Cout, T // 2]
+    return h.contiguous() if i + 1 < n_blocks else h
+
+
 def _conv_stack(q: QParams, h: torch.Tensor, n_blocks: int, int8_layers: Tuple[int, ...]
                 ) -> torch.Tensor:
     """Mixed int8/bf16 conv stack: h [B, T, 12] z-scored -> [B, T', C_last].
@@ -238,28 +263,31 @@ def _conv_stack(q: QParams, h: torch.Tensor, n_blocks: int, int8_layers: Tuple[i
     Between layers the activation is channel-major [B, C, T], cuDNN's
     layout, so the bf16 layers' epilogues read it in order; an int8 layer
     takes its input channels-last for im2col (an int8 copy) and its
-    epilogue and pool run on ``_int_mm``'s channels-last rows.
+    epilogue and pool run on ``_int_mm``'s channels-last rows.  Each block is
+    ``conv_stack_block``.
     """
-    bf16 = torch.bfloat16
     h = h.transpose(1, 2)  # channel-major view
     for i in range(n_blocks):
-        w, b = q[f"w{i}"], q[f"b{i}"].to(bf16)
-        nxt = q.get(f"sx{i + 1}") if i + 1 in int8_layers else None
-        if i in int8_layers:
-            xq = h if h.dtype == torch.int8 else quantize_act(h, q[f"sx{i}"][:, None])
-            y = int8_conv1d(xq.transpose(1, 2).contiguous(), int8_weight_matrix(w))
-            a = torch.relu(y.to(bf16) * q[f"sw{i}"].to(bf16) + b)  # [B, T, Cout]
-            if nxt is not None:
-                a = quantize_act(a, nxt)
-            h = _pool2(a).transpose(1, 2)
-        else:
-            a = torch.relu(bf16_conv1d(h, w.to(bf16).permute(2, 1, 0)) + b[:, None])
-            if nxt is not None:
-                a = quantize_act(a, nxt[:, None])
-            h = a.unfold(2, 2, 2).amax(-1)  # [B, Cout, T // 2]
-        if i + 1 < n_blocks:
-            h = h.contiguous()
+        h = conv_stack_block(q, h, i, n_blocks, int8_layers)
     return h.transpose(1, 2)
+
+
+def block0_operand(x: torch.Tensor, int8_layers: Tuple[int, ...]) -> torch.Tensor:
+    """Raw x [B, T, 12] -> block 0's input: the one-pass z-score, channel-major,
+    rounded to bf16 when block 0 is a bf16 layer (its conv's operand)."""
+    h = zscore_per_lead_batch_onepass(x).transpose(1, 2)
+    return h if 0 in int8_layers else h.to(torch.bfloat16)
+
+
+def conv_stack_inputs(q: QParams, x: torch.Tensor, n_blocks: int,
+                      int8_layers: Tuple[int, ...]) -> List[torch.Tensor]:
+    """Raw x [B, T, 12] -> every block's input as ``_conv_stack`` hands it on
+    (dtype and layout), then the last block's output: ``n_blocks + 1`` tensors;
+    the last, transposed, is ``_conv_stack``'s result bit for bit."""
+    hs = [block0_operand(x, int8_layers)]
+    for i in range(n_blocks):
+        hs.append(conv_stack_block(q, hs[-1], i, n_blocks, int8_layers))
+    return hs
 
 
 def split_meta(q: QParams) -> Tuple[Dict[str, torch.Tensor], int, Tuple[int, ...]]:
@@ -284,6 +312,22 @@ def chunk_records(t: int, arrs: Dict[str, torch.Tensor], int8_layers: Sequence[i
     return max(1, budget // per_rec)
 
 
+def dense_tail(q: QParams, h: torch.Tensor, arch: str = "ecgcnn",
+               demo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The quantized forward's tail: h [B, T', C] -> probs f32 (mean over time,
+    proj, the FiLM demo branch for ``multimodal``, head, sigmoid), in f32 with
+    TF32 off."""
+    with highest_precision():
+        z = h.float().mean(1) @ q["proj_w"] + q["proj_b"]
+        if arch == "multimodal":
+            e = torch.relu(demo.float() @ q["fc1_w"] + q["fc1_b"])
+            e = torch.relu(e @ q["fc2_w"] + q["fc2_b"])
+            film = e @ q["film_w"] + q["film_b"]
+            gamma, beta = film.chunk(2, dim=-1)
+            z = (1.0 + torch.tanh(gamma)) * z + beta
+        return torch.sigmoid(z @ q["head_w"] + q["head_b"])
+
+
 def make_quantized_forward(n_blocks: int, int8_layers: Tuple[int, ...], arch: str = "ecgcnn",
                            normalize: bool = True, budget: Optional[int] = IM2COL_BUDGET
                            ) -> Callable[..., torch.Tensor]:
@@ -298,16 +342,7 @@ def make_quantized_forward(n_blocks: int, int8_layers: Tuple[int, ...], arch: st
 
     def probs(q, x, demo):
         h = zscore_per_lead_batch_onepass(x) if normalize else x
-        h = _conv_stack(q, h, n_blocks, int8_layers)
-        with highest_precision():
-            z = h.float().mean(1) @ q["proj_w"] + q["proj_b"]
-            if arch == "multimodal":
-                e = torch.relu(demo.float() @ q["fc1_w"] + q["fc1_b"])
-                e = torch.relu(e @ q["fc2_w"] + q["fc2_b"])
-                film = e @ q["film_w"] + q["film_b"]
-                gamma, beta = film.chunk(2, dim=-1)
-                z = (1.0 + torch.tanh(gamma)) * z + beta
-            return torch.sigmoid(z @ q["head_w"] + q["head_b"])
+        return dense_tail(q, _conv_stack(q, h, n_blocks, int8_layers), arch, demo)
 
     def fwd(q, x, demo=None):
         if arch == "multimodal" and demo is None:

@@ -15,22 +15,25 @@ its seed with numpy alone and is bit for bit the JAX tool's.
 
 The JAX arm is not run here: its artifacts (``jax*.json``, read from
 ``--jax_dir``, by default ``outputs/showdown/``, which this tool never
-writes) are the reference.  ``run_port`` trains the port on the JAX arm's
-batches (raw channels-last records, the order shuffled by
-``default_rng(train_seed + epoch)``, the last batch padded from the epoch
-order and masked, the z-score inside the step) and writes ``port{tag}.json``
-in the JAX artifact's schema.  ``compare`` gates the port against JAX per
-metric: ``deficit_vs_jax = max(0, jax - port)`` within 0.005 AUROC, 0.02
-AUPRC and 0.10 F1@0.5, on paired seed means when a family has more than one
-paired seed, where a deficit over budget with Welch t < 2 is marked
-insignificant and passes.  The dataset ``.npz`` (~530 MB at full size), the
-port's artifacts and the reports go to ``build/showdown/``.
+writes) are the reference.  ``--jax_dir`` may be given more than once: every
+reader takes the union of the directories (``outputs/showdown_seeds/`` holds
+more seeds of a family), a seed found twice counted once.  ``run_port``
+trains the port on the JAX arm's batches (raw channels-last records, the
+order shuffled by ``default_rng(train_seed + epoch)``, the last batch padded
+from the epoch order and masked, the z-score inside the step) and writes
+``port{tag}.json`` in the JAX artifact's schema.  ``compare`` gates the port
+against JAX per metric: ``deficit_vs_jax = max(0, jax - port)`` within 0.005
+AUROC, 0.02 AUPRC and 0.10 F1@0.5, on paired seed means when a family has
+more than one paired seed, where a deficit over budget with Welch t < 2 is
+marked insignificant and passes.  The dataset ``.npz`` (~530 MB at full
+size), the port's artifacts and the reports go to ``build/showdown/``.
 
 ``run --from_jax FILE`` trains the port with that artifact's stored config
-(epochs differ across seeds) and compares its family; ``run --all`` does so
-for every JAX artifact, one report per family.  Artifacts written before the
-configs carried ``arch``, ``hard`` and ``jax_torch_init`` store them as
-``null``: they read as baseline, False, False.
+(epochs differ across seeds) and compares its family over the ``--jax_dir``
+directories; ``run --all`` does so for every JAX artifact there, one report
+per family.  Artifacts written before the configs carried ``arch``, ``hard``
+and ``jax_torch_init`` store them as ``null``: they read as baseline, False,
+False.
 """
 
 from __future__ import annotations
@@ -410,44 +413,56 @@ _METRIC_KEYS = {"auroc": "test_auroc_macro", "auprc": "test_auprc_macro",
                 "f1": "test_f1_macro"}
 
 
-def _collect_seed_runs(framework, variant_base, ti=False, directory=None):
-    """Per-seed result files of one arm in ``directory`` (default ``OUT_DIR``):
-    ``{seed_tag: run}``, each run carrying its file name, stored config and the
-    three gated metrics.
+def _collect_seed_runs(framework, variant_base, ti, dirs):
+    """Per-seed result files of one arm in the directories ``dirs`` (their
+    union): ``{seed_tag: run}``, each run carrying its file name, directory,
+    stored config and the three gated metrics.
 
     Matches ``{framework}{base}.json`` and ``..._tsNN.json``, or their ``_ti``
     forms with ``ti=True``, so the two inits never pool.  Runs are keyed by the
     effective train seed of the stored config: a base artifact (seed =
     ``seed``) and an explicit ``_tsN`` one with the same number are one seed,
-    and the explicitly tagged artifact is kept.
+    and the explicitly tagged artifact is kept; of two tagged ones (the same
+    seed in two directories) the first directory's.
     """
-    directory = OUT_DIR if directory is None else directory
     suffix = "_ti" if ti else ""
     pat = re.compile(rf"^{framework}{variant_base}(_ts\d+)?{suffix}\.json$")
     out = {}
-    for f in sorted(os.listdir(directory)) if os.path.isdir(directory) else []:
-        m = pat.match(f)
-        if not m:
-            continue
-        with open(os.path.join(directory, f)) as fh:
-            d = json.load(fh)
-        cfg = d.get("config", {})
-        eff = cfg.get("train_seed")
-        if eff is None:
-            eff = cfg.get("seed")
-        key = f"_ts{eff}" if eff is not None else (m.group(1) or "")
-        run = {"file": f, "config": cfg,
-               "metrics": {k: d[v] for k, v in _METRIC_KEYS.items()}}
-        if key in out:
-            keep_new = bool(m.group(1))
-            print(f"[showdown] WARNING: {f} and {out[key]['file']} resolve "
-                  f"to the same effective train seed ({key.lstrip('_')}); "
-                  f"keeping {'the explicitly tagged' if keep_new else 'the first'} one.",
-                  file=sys.stderr)
-            if not keep_new:
+    for d_path in dirs:
+        for f in sorted(os.listdir(d_path)) if os.path.isdir(d_path) else []:
+            m = pat.match(f)
+            if not m:
                 continue
-        out[key] = run
+            with open(os.path.join(d_path, f)) as fh:
+                d = json.load(fh)
+            cfg = d.get("config", {})
+            eff = cfg.get("train_seed")
+            if eff is None:
+                eff = cfg.get("seed")
+            key = f"_ts{eff}" if eff is not None else (m.group(1) or "")
+            run = {"file": f, "dir": d_path, "config": cfg, "tagged": bool(m.group(1)),
+                   "metrics": {k: d[v] for k, v in _METRIC_KEYS.items()}}
+            if key in out:
+                prev = out[key]
+                keep_new = run["tagged"] and not prev["tagged"]
+                print(f"[showdown] WARNING: {os.path.join(d_path, f)} and "
+                      f"{os.path.join(prev['dir'], prev['file'])} resolve to the same "
+                      f"effective train seed ({key.lstrip('_')}); keeping "
+                      f"{'the explicitly tagged' if keep_new else 'the first'} one.",
+                      file=sys.stderr)
+                if not keep_new:
+                    continue
+            out[key] = run
     return out
+
+
+def _find_artifact(name, dirs):
+    """The path of ``name`` in the first of ``dirs`` that holds it."""
+    for d_path in dirs:
+        path = os.path.join(d_path, name)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"{name} is in none of {dirs}")
 
 
 # Keys two runs must agree on to be comparable: the task (dataset sizes, seed,
@@ -483,8 +498,9 @@ def _welch_t(a, b):
     return float((a.mean() - b.mean()) / denom)
 
 
-def compare(cfg, budget=0.005, budget_auprc=0.02, budget_f1=0.10, jax_dir=None):
-    """Gate the port's artifacts of ``cfg``'s family against JAX's; the report.
+def compare(cfg, budget=0.005, budget_auprc=0.02, budget_f1=0.10, jax_dirs=(JAX_DIR,)):
+    """Gate the port's artifacts of ``cfg``'s family against JAX's (the union
+    of the directories ``jax_dirs``); the report.
 
     Per metric, ``deficit_vs_jax = max(0, jax - port)`` within its budget, on
     the paired seed means when more than one seed is paired (both arms ran it
@@ -493,12 +509,11 @@ def compare(cfg, budget=0.005, budget_auprc=0.02, budget_f1=0.10, jax_dir=None):
     arm's ``wall_s``, goes to ``report_port{tag}.json`` in ``OUT_DIR``.
     """
     cfg = normalize_config(cfg)
-    jax_dir = JAX_DIR if jax_dir is None else jax_dir
     budgets = {"auroc": budget, "auprc": budget_auprc, "f1": budget_f1}
     tag = _tag(cfg)
     with open(os.path.join(OUT_DIR, f"port{tag}.json")) as f:
         p = json.load(f)
-    with open(os.path.join(jax_dir, f"jax{tag}.json")) as f:
+    with open(_find_artifact(f"jax{tag}.json", jax_dirs)) as f:
         j = json.load(f)
     keys = ("test_auroc_macro", "test_auprc_macro", "test_f1_macro", "best_epoch")
     report = {
@@ -520,8 +535,8 @@ def compare(cfg, budget=0.005, budget_auprc=0.02, budget_f1=0.10, jax_dir=None):
                       "deficit_vs_jax": max(0.0, j[key] - p[key]), "budget": budgets[m]}
 
     base, ti = _variant_base(cfg), cfg["jax_torch_init"]
-    p_runs = _collect_seed_runs("port", base, ti, OUT_DIR)
-    j_runs = _collect_seed_runs("jax", base, ti, jax_dir)
+    p_runs = _collect_seed_runs("port", base, ti, [OUT_DIR])
+    j_runs = _collect_seed_runs("jax", base, ti, jax_dirs)
     paired, dropped = {}, []
     for s in sorted(set(p_runs) | set(j_runs)):
         pr, jr = p_runs.get(s), j_runs.get(s)
@@ -585,18 +600,17 @@ def compare(cfg, budget=0.005, budget_auprc=0.02, budget_f1=0.10, jax_dir=None):
     return report
 
 
-def calibration_analysis(cfg=None, jax_dir=None):
+def calibration_analysis(cfg=None, jax_dirs=(JAX_DIR,)):
     """Threshold and calibration analysis over both arms' artifacts that carry
     test probabilities: F1 at 0.5, at the best single global threshold on test
     (an oracle upper bound) and at the threshold fit on the best model's
     validation probabilities (per class for 5 labels; the deployable estimate),
     and the positive / negative probability medians.
     """
-    jax_dir = JAX_DIR if jax_dir is None else jax_dir
     base = _variant_base(cfg or {})
     pat = re.compile(rf"^(port|jax){base}(_ts\d+)?(_ti)?\.json$")
     files = []
-    for directory in (OUT_DIR, jax_dir):
+    for directory in [OUT_DIR, *jax_dirs]:
         if os.path.isdir(directory):
             files += [(directory, f) for f in sorted(os.listdir(directory)) if pat.match(f)]
 
@@ -663,12 +677,11 @@ def calibration_analysis(cfg=None, jax_dir=None):
     return rows
 
 
-def summary(jax_dir=None):
+def summary(jax_dirs=(JAX_DIR,)):
     """Print every recorded run of both arms, grouped by arch, variant and arm."""
-    jax_dir = JAX_DIR if jax_dir is None else jax_dir
     pat = re.compile(r"^(port|jax)(_mm|_af)?(_hard)?(_ts\d+)?(_ti)?\.json$")
     rows = {}
-    for directory in (OUT_DIR, jax_dir):
+    for directory in [OUT_DIR, *jax_dirs]:
         for f in sorted(os.listdir(directory)) if os.path.isdir(directory) else []:
             m = pat.match(f)
             if not m:
@@ -708,21 +721,22 @@ def jax_config(path):
     return cfg
 
 
-def jax_families(jax_dir=None):
-    """Every JAX artifact in ``jax_dir`` by family: ``{family: [config, ...]}``,
-    the base artifact (no explicit train seed) first."""
-    jax_dir = JAX_DIR if jax_dir is None else jax_dir
+def jax_families(jax_dirs=(JAX_DIR,)):
+    """Every JAX artifact in the directories ``jax_dirs`` by family:
+    ``{family: [config, ...]}``, the base artifact (no explicit train seed)
+    first.  A seed found twice is trained twice; ``compare`` counts it once."""
     families = {}
-    for f in sorted(os.listdir(jax_dir)):
-        if JAX_ARTIFACT.match(f):
-            cfg = jax_config(os.path.join(jax_dir, f))
-            families.setdefault(family_of(cfg), []).append(cfg)
+    for d_path in jax_dirs:
+        for f in sorted(os.listdir(d_path)):
+            if JAX_ARTIFACT.match(f):
+                cfg = jax_config(os.path.join(d_path, f))
+                families.setdefault(family_of(cfg), []).append(cfg)
     for cfgs in families.values():
         cfgs.sort(key=lambda c: c.get("train_seed") is not None)
     return families
 
 
-def run_families(families, device=None, jax_dir=None, **budgets):
+def run_families(families, device=None, jax_dirs=(JAX_DIR,), **budgets):
     """Train the port on every config of ``families``, then compare each family
     (its first config as the primary pair); ``{family: report}``."""
     reports = {}
@@ -731,7 +745,7 @@ def run_families(families, device=None, jax_dir=None, **budgets):
             print(f"[showdown] port run {fam or 'baseline'} -> port{_tag(cfg)}.json "
                   f"(epochs {cfg['epochs']})", flush=True)
             run_port(cfg, device)
-        reports[fam] = compare(cfgs[0], jax_dir=jax_dir, **budgets)
+        reports[fam] = compare(cfgs[0], jax_dirs=jax_dirs, **budgets)
     return reports
 
 
@@ -750,7 +764,9 @@ def main(argv=None) -> int:
                    help="run: train the port with this JAX artifact's stored config")
     p.add_argument("--all", action="store_true",
                    help="run: every jax*.json in --jax_dir, one report per family")
-    p.add_argument("--jax_dir", default=JAX_DIR, help="the JAX arm's artifacts (read only)")
+    p.add_argument("--jax_dir", action="append", default=None,
+                   help="the JAX arm's artifacts (read only; default outputs/showdown); "
+                        "repeat it to read the union of several directories")
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     p.add_argument("--hard", action="store_true",
                    help="low-SNR + 4%% label-noise variant")
@@ -774,26 +790,27 @@ def main(argv=None) -> int:
     budgets = {"budget": args.budget, "budget_auprc": args.budget_auprc,
                "budget_f1": args.budget_f1}
     cfg = make_config(args)
+    dirs = args.jax_dir or [JAX_DIR]
 
     if args.cmd == "summary":
-        summary(args.jax_dir)
+        summary(dirs)
     elif args.cmd == "calib":
-        calibration_analysis(cfg, args.jax_dir)
+        calibration_analysis(cfg, dirs)
     elif args.cmd == "gen":
         ensure_dataset(cfg)
     elif args.cmd == "port":
         run_port(cfg, args.device)
     elif args.cmd == "compare":
-        return 0 if compare(cfg, jax_dir=args.jax_dir, **budgets)["within_budget"] else 1
+        return 0 if compare(cfg, jax_dirs=dirs, **budgets)["within_budget"] else 1
     else:  # run
         if args.all == (args.from_jax is not None):
             p.error("run takes exactly one of --from_jax FILE and --all")
         if args.all:
-            families = jax_families(args.jax_dir)
+            families = jax_families(dirs)
         else:
             cfg = jax_config(args.from_jax)
             families = {family_of(cfg): [cfg]}
-        reports = run_families(families, args.device, args.jax_dir, **budgets)
+        reports = run_families(families, args.device, dirs, **budgets)
         failed = [fam or "baseline" for fam, r in reports.items() if not r["within_budget"]]
         print(f"[showdown] {len(reports) - len(failed)}/{len(reports)} families within "
               f"budget" + (f"; failed: {failed}" if failed else ""), flush=True)

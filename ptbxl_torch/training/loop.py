@@ -6,9 +6,13 @@
   ``sum(loss * mask) / sum(mask)``, backward (through K6 at every pool) and
   an AdamW step.  With ``precision='highest'`` the whole step, backward and
   optimizer included, runs with TF32 off: the backward runs after the
-  forward's own scope has closed.
+  forward's own scope has closed.  The whole step runs with cuDNN held to
+  deterministic algorithms and autotuning off (``deterministic_algorithms``),
+  so one seed gives one training bit for bit on the card, as on the CPU
+  (tests/test_determinism.py's contract); the flags are restored after.
 * ``make_eval_step``: eval-mode forward, f32 logits at the boundary, sigmoid
-  and per-sample BCE.
+  and per-sample BCE, under the same deterministic scope (validation picks
+  the best epoch).
 * the final padded batch is masked out of the loss and the metrics; epoch
   losses aggregate ``per_sample`` (dataset-weighted, reference loop.py:36-38)
   or ``per_batch`` (the multimodal task's unweighted batch mean,
@@ -46,6 +50,7 @@ from ptbxl_torch.models.ecg_cnn import precision_scope
 from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
 from ptbxl_torch.training.metrics import compute_metrics
 from ptbxl_torch.training.train_state import TrainState
+from ptbxl_torch.utils.device import deterministic_algorithms
 from ptbxl_torch.utils.profiling import StepTimer, perf_enabled
 
 Batch = Dict[str, object]
@@ -102,7 +107,7 @@ def make_train_step(multimodal: bool = False, normalize: str = "per_lead", mesh=
         model = state.model
         b = _on(batch if mesh is None else mesh.local(batch), _device_of(model))
         model.train()
-        with precision_scope(model.precision):
+        with precision_scope(model.precision), deterministic_algorithms():
             logits = _logits(model, b, multimodal, normalize)
             mask = b["mask"]
             n_real = torch.sum(mask)
@@ -134,7 +139,7 @@ def make_eval_step(multimodal: bool = False, normalize: str = "per_lead", mesh=N
         model = state.model
         b = _on(batch if mesh is None else mesh.local(batch), _device_of(model))
         model.eval()
-        with precision_scope(model.precision):
+        with precision_scope(model.precision), deterministic_algorithms():
             # f32 at the boundary: the host metrics and CSV read these even
             # when the model computes in bf16
             logits = _logits(model, b, multimodal, normalize).float()

@@ -46,6 +46,27 @@ def highest_precision() -> Iterator[None]:
         cudnn.allow_tf32, mm.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def deterministic_algorithms() -> Iterator[None]:
+    """cuDNN held to deterministic algorithms, autotuning off, for the scope;
+    both flags restored after.
+
+    cuDNN's heuristics may pick a convolution backward whose sums land in a
+    different order on each call, so two runs from one seed drift apart and
+    AdamW carries the drift to the end of training.  The train and eval steps
+    enter this scope (the JAX package's identical-seeds contract,
+    tests/test_determinism.py); ``utils.rng.set_seed`` pins the same flags for
+    the process, as the reference's ``set_seed`` does.
+    """
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def precision_scope(precision: Optional[str]):
     """``highest_precision()`` for ``precision='highest'``, else no change."""
     return highest_precision() if precision == "highest" else contextlib.nullcontext()

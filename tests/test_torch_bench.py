@@ -31,7 +31,10 @@ FULL_TABLE = [
 
 
 def _run_bench(*args, out):
-    env = dict(os.environ, PTBXL_TORCH_BENCH_SMOKE="1", PYTHONPATH=HERE)
+    # one intra-op thread: the smoke rows are tiny, and eight threads a process
+    # thrash when the suite's workers share the host's cores
+    env = dict(os.environ, PTBXL_TORCH_BENCH_SMOKE="1", PYTHONPATH=HERE, OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-m", "ptbxl_torch.bench", "--device", "cpu",
                            "--out", str(out), *args],
                           cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
@@ -131,6 +134,21 @@ def test_ceiling_decomposes_the_shipping_int8_model(full_run):
     assert ceil["peaks_assumed"]["int8_dense_tops"] == 1979.0
     assert ceil["peaks_assumed"]["bf16_dense_tflops"] == 989.0
     assert ceil["ceiling_rps"] >= ceil["decomposition_rps"] > 0
+
+
+def test_ceiling_times_each_block_directly():
+    """``bench_ceiling`` at a small batch in this process: each of the six
+    parts is timed alone on its own stored input, so every ``measured_us`` is
+    a positive time, not a difference of two; ``decomposition_check`` puts
+    their sum beside one whole forward."""
+    ceil = bench.bench_ceiling(bench.Clock(torch.device("cpu")), batch_size=4, iters=1)
+    assert ceil["config"]["batch"] == 4 and ceil["config"]["rounds"] == bench.CEIL_ROUNDS
+    assert [r["block"] for r in ceil["blocks"]] == [
+        "zscore", "block0", "block1", "block2", "block3", "tail"]
+    assert all(r["measured_us"] > 0 for r in ceil["blocks"]), ceil["blocks"]
+    assert ceil["config"]["decomposition_check"] > 0
+    assert ceil["decomposition_rps"] == pytest.approx(
+        1e6 / sum(r["measured_us"] for r in ceil["blocks"]))
 
 
 def test_regression_gate_against_a_prior_sidecar(full_run, tmp_path):

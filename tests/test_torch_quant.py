@@ -160,6 +160,29 @@ def test_conv_stack_bit_for_bit_against_jax(layers, widths):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+@pytest.mark.parametrize("layers", [(3,), (0, 3), (1, 3), (0, 1, 2, 3), ()])
+def test_block_by_block_equals_the_stack(layers):
+    """``conv_stack_inputs`` (``conv_stack_block`` chained from
+    ``block0_operand``: the blocks ``bench_ceiling`` times one by one) ends in
+    ``_conv_stack``'s output bit for bit, and ``dense_tail`` on it is the
+    quantized forward's probabilities bit for bit."""
+    rng = np.random.default_rng(11)
+    folded = _tiny_folded(rng, 4, (8, 16, 16, 32), 4)
+    x = torch.from_numpy(rng.standard_normal((3, 256, 4)).astype(np.float32) * 3 + 1)
+    xz = tq.zscore_per_lead_batch_onepass(x)
+    q = tq.quantize_folded(folded, tq.calibrate_act_scales(folded, xz, layers), layers)
+    arrs, nb, ls = tq.split_meta(q)
+    hs = tq.conv_stack_inputs(arrs, x, nb, ls)
+    assert len(hs) == nb + 1
+    assert hs[0].dtype == (torch.float32 if 0 in ls else torch.bfloat16)
+    for i in range(1, nb):  # an int8 block takes int8 when the block before requantized
+        assert hs[i].dtype == (torch.int8 if i in ls else torch.bfloat16), i
+    want = tq._conv_stack(arrs, xz, nb, ls)
+    assert torch.equal(hs[-1].transpose(1, 2), want)
+    probs = tq.make_quantized_forward(nb, ls, arch="ecgcnn")(arrs, x)
+    assert torch.equal(tq.dense_tail(arrs, hs[-1].transpose(1, 2)), probs)
+
+
 @pytest.mark.parametrize("b,t,cin,cout", [
     (2, 40, 12, 32),   # layer 0's channels: K = 180 padded to 184
     (1, 37, 32, 64),   # one record: im2col's reshape is an overlapping view
