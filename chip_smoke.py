@@ -8,7 +8,8 @@ each against its plain PyTorch version on the card (K1 z-score at B=1, 512
 and 8192, on a ragged T=37 through clusters of 2, 4 and 8 CTAs, its output
 bit for bit against ``(x - mean) / sd`` from its own stats, its division
 against IEEE division; K2 ECGCNN forward and each of its four 3xTF32 conv
-blocks, K3 FiLM multimodal forward, K6 ReLU -> MaxPool backward, K4 hybrid
+blocks, K3 FiLM multimodal forward (both in bf16 on K4's ``wgmma`` blocks,
+K3's tail on the tile sums alone too), K6 ReLU -> MaxPool backward, K4 hybrid
 forward and each of its four ``wgmma`` conv blocks, K5 wide z-score (the
 ragged T=37 too), P3 and P4 conv layers (both on K4's ``wgmma``
 block: P3's output on a zero-padded input also bit for bit against K4's
@@ -2569,13 +2570,16 @@ def phase_showdown() -> dict:
 
 
 def split_breakdown(launches: list) -> dict:
-    """K4's per-launch device times: the stats pass, each ``wgmma`` block and
-    the tail.  Raises if the route launched any kernel but the port's own
-    (no library conv, matmul or framework z-score)."""
+    """The per-launch device times of K4's bf16 route (and of K2's and K3's
+    bf16 forwards, the same launches): the stats pass, each ``wgmma`` block
+    and the tail.  Raises if the route launched any kernel but the port's own
+    (no library conv, matmul or framework z-score, no FMA conv block), or not
+    four ``wgmma`` blocks and a sums tail."""
     other = [name for name, _ in launches if not any(k in name for k in K4_KERNELS)]
-    if other:
-        raise AssertionError(f"K4's bf16 route launched other kernels: {other}")
     blocks = [ms for name, ms in launches if "wgmma_conv_block" in name]
+    if other or len(blocks) != 4 or not any("sums_tail" in name for name, _ in launches):
+        raise AssertionError(f"the bf16 route launched {[name for name, _ in launches]}, not "
+                             f"the stats, four wgmma blocks and a sums tail")
     return {"stats_ms": sum(ms for name, ms in launches if "zscore" in name),
             "block_ms": blocks, "tail_ms": sum(ms for name, ms in launches if "sums_tail" in name),
             "total_ms": sum(ms for _, ms in launches), "launches": launches}
@@ -2626,6 +2630,9 @@ def crossover_n(rows: dict) -> dict:
     if out["kernel_no_slower_than_bf16_max_n"] < inference.KERNEL_MAX_BATCH_BF16:
         raise AssertionError(f"the default crossover {out['kernel_no_slower_than_bf16_max_n']} "
                              f"is below KERNEL_MAX_BATCH_BF16={inference.KERNEL_MAX_BATCH_BF16}")
+    # the kernel's bf16 form against cuDNN bf16: recorded, gates nothing
+    wins = [b for b in CROSSOVER_N if rows[b]["kernel_bf16_ms"] <= rows[b]["framework_bf16_ms"]]
+    out["kernel_bf16_no_slower_than_bf16_max_n"] = max(wins, default=0)
     return out
 
 
@@ -2736,6 +2743,7 @@ def main(argv=None) -> int:
     state, _ = load_checkpoint(CKPT)
     folded = k2.fold_bn_into_conv({k: v.to(dev) for k, v in state.items()})
     k2_w = k2.prepare_weights(folded)  # the f32 conv blocks' split weights, built once
+    k2_w16 = k4.prepare_weights(folded, torch.bfloat16)  # the bf16 form's wgmma weights
     x_demo = torch.from_numpy(demo_signals().transpose(0, 2, 1).copy()).to(dev)
     x_odd = raw_batch(2, gen)[:, :500].contiguous()  # 500 -> 250 -> 125 -> 62 -> 31: odd floors
     cases = {"1": x_raw[:1], "7": x_demo, str(BIG): x_raw, "2 T=500": x_odd}
@@ -2743,8 +2751,8 @@ def main(argv=None) -> int:
     for b, xb in cases.items():
         for normalize in (True, False):
             xin = xb if normalize else k1.zscore_plain(xb)
-            for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-3)):
-                got = k2.fused_ecgcnn_probs(xin, folded, dt, normalize, k2_w)
+            for dt, tol, w in ((torch.float32, 2e-5, k2_w), (torch.bfloat16, 5e-3, k2_w16)):
+                got = k2.fused_ecgcnn_probs(xin, folded, dt, normalize, w)
                 want = torch.sigmoid(k2.fused_ecgcnn_logits_plain(xin, folded, dt, normalize))
                 name = f"B={b} normalize={normalize} {str(dt)[6:]}"
                 k2_err[name] = gate(f"fused_ecgcnn {name}", max_diff(got, want), tol)
@@ -2756,6 +2764,7 @@ def main(argv=None) -> int:
     state_mm, _ = load_checkpoint(CKPT_MM, arch="multimodal")
     folded_mm = k2.fold_multimodal({k: v.to(dev) for k, v in state_mm.items()})
     k3_w = k2.prepare_weights(folded_mm)
+    k3_w16 = k4.prepare_weights(folded_mm, torch.bfloat16)
     sigs_mm, demos_mm = mm_demo_pack()
     x_mm = torch.from_numpy(sigs_mm.transpose(0, 2, 1).copy()).to(dev)
     d_mm = torch.from_numpy(demos_mm).to(dev)
@@ -2766,14 +2775,26 @@ def main(argv=None) -> int:
     for b, (xb, db) in cases_mm.items():
         for normalize in (True, False):
             xin = xb if normalize else k1.zscore_plain(xb)
-            for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-3)):
-                got = k2.fused_multimodal_probs(xin, db, folded_mm, dt, normalize, k3_w)
+            for dt, tol, w in ((torch.float32, 2e-5, k3_w), (torch.bfloat16, 5e-3, k3_w16)):
+                got = k2.fused_multimodal_probs(xin, db, folded_mm, dt, normalize, w)
                 want = torch.sigmoid(k2.fused_multimodal_logits_plain(xin, db, folded_mm, dt,
                                                                       normalize))
                 name = f"B={b} normalize={normalize} {str(dt)[6:]}"
                 k3_err[name] = gate(f"fused_multimodal {name}", max_diff(got, want), tol)
+    # K3's bf16 tail alone, on the card's own tile sums of block 3: logits within
+    # 2e-2 (a sum in another order can move an operand's bf16 rounding by an ulp;
+    # tests/test_torch_hybrid.py's sums tail tolerance), probs within 5e-3
+    mm_tail_err = {}
+    for b, (xb, db) in cases_mm.items():
+        part, t_pool = k4.wgmma_sums(xb, folded_mm, k3_w16["blocks"])
+        got = k4.mm_sums_tail(part, t_pool, folded_mm, db)
+        want = k4.mm_sums_tail_plain(part, t_pool, folded_mm, db)
+        mm_tail_err[f"B={b} logits"] = gate(f"mm_sums_tail B={b}", max_diff(got, want), 2e-2)
+        mm_tail_err[f"B={b} probs"] = gate(f"mm_sums_tail B={b} probs",
+                                           max_diff(torch.sigmoid(got), torch.sigmoid(want)),
+                                           5e-3)
     torch.cuda.synchronize()
-    emit({"phase": "k3", "max_abs_err": k3_err})
+    emit({"phase": "k3", "max_abs_err": k3_err, "mm_sums_tail_max_abs_err": mm_tail_err})
 
     # -- phase 3c: K6 against its plain version and torch's autograd -----------
     k6_err, k6_autograd = phase_k6(gen)
@@ -2918,6 +2939,12 @@ def main(argv=None) -> int:
                 # the framework engine: z-score + cuDNN model (f32 TF32 off; bf16)
                 "library_ms": time_ms(lambda: p_hi._forward(xb)),
                 "library_bf16_ms": time_ms(lambda: p_lo._forward(xb)),
+                # the bf16 form (K4's wgmma blocks and sums tail) and its bound
+                "ms_bf16": time_ms(lambda: k2.fused_ecgcnn_logits(xb, folded, torch.bfloat16,
+                                                                  weights=k2_w16)),
+                "plain_ms_bf16": time_ms(lambda: k2.fused_ecgcnn_logits_plain(xb, folded,
+                                                                              torch.bfloat16)),
+                "bound_bf16": bound(k2_flops, k2_bytes, PEAK_BF16),
                 # the f32 products on the FMA units, or as three TF32
                 # tensor-core products each (3xTF32); the bound is the faster
                 "bound_fp32": bound(k2_flops, k2_bytes),
@@ -2940,6 +2967,11 @@ def main(argv=None) -> int:
             # the framework engine: z-score + cuDNN multimodal model (f32 TF32 off; bf16)
             "library_ms": time_ms(lambda: p_mm_hi._forward(xb, db)),
             "library_bf16_ms": time_ms(lambda: p_mm_lo._forward(xb, db)),
+            "ms_bf16": time_ms(lambda: k2.fused_multimodal_logits(xb, db, folded_mm, torch.bfloat16,
+                                                                  weights=k3_w16)),
+            "plain_ms_bf16": time_ms(lambda: k2.fused_multimodal_logits_plain(
+                xb, db, folded_mm, torch.bfloat16)),
+            "bound_bf16": bound(k3_flops, k3_bytes, PEAK_BF16),
             "bound_fp32": bound(k3_flops, k3_bytes),
             "bound_3xtf32": bound(3 * k3_flops, k3_bytes, PEAK_TF32),
             "bound": min(bound(k3_flops, k3_bytes), bound(3 * k3_flops, k3_bytes, PEAK_TF32)),
@@ -2955,9 +2987,12 @@ def main(argv=None) -> int:
     # is no slower than cuDNN f32 at 'highest')
     import ptbxl_torch.inference as inference
 
+    # (kernel_bf16_ms: the kernel's bf16 form called directly with its weights,
+    # recorded beside cuDNN bf16; K2's launches in that column counted alone)
     p_kern = Predictor.from_checkpoint(CKPT, engine="kernel")
     crossover = {}
     k1.launches = 0
+    crossover_bf16_k2 = 0
     for b in CROSSOVER_N:
         xb = raw_batch(b, gen)
         crossover[b] = {
@@ -2965,6 +3000,10 @@ def main(argv=None) -> int:
             "framework_f32_ms": time_ms(lambda: p_hi._forward(xb), reps=5),
             "framework_bf16_ms": time_ms(lambda: p_lo._forward(xb), reps=5),
         }
+        before = k2.launches
+        crossover[b]["kernel_bf16_ms"] = time_ms(
+            lambda: k2.fused_ecgcnn_probs(xb, folded, torch.bfloat16, weights=k2_w16), reps=5)
+        crossover_bf16_k2 += k2.launches - before
     torch.cuda.synchronize()
     crossover_k1 = k1.launches  # K1's stats entry before every kernel-engine chunk
     if crossover_k1 <= 0:
@@ -2986,12 +3025,14 @@ def main(argv=None) -> int:
         raise AssertionError(f"default routing: {routing}")
     emit({"phase": "crossover", "ms": crossover, "kernel_max_batch": inference.KERNEL_MAX_BATCH,
           "kernel_max_batch_bf16": inference.KERNEL_MAX_BATCH_BF16,
-          "launches": {"zscore": crossover_k1, "zscore_default_auto": default_k1},
+          "launches": {"zscore": crossover_k1, "zscore_default_auto": default_k1,
+                       "fused_ecgcnn_bf16": crossover_bf16_k2},
           "default_auto": routing, **crossover_n(crossover)})
 
     # the same for the multimodal Predictor (K3 vs the framework engine)
     p_mm_kern = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", engine="kernel")
     crossover_mm = {}
+    crossover_bf16_k3 = 0
     for b in CROSSOVER_N:
         xb, db = raw_batch(b, gen), demo_batch(b, gen)
         crossover_mm[b] = {
@@ -2999,6 +3040,11 @@ def main(argv=None) -> int:
             "framework_f32_ms": time_ms(lambda: p_mm_hi._forward(xb, db), reps=5),
             "framework_bf16_ms": time_ms(lambda: p_mm_lo._forward(xb, db), reps=5),
         }
+        before = k2.launches_mm
+        crossover_mm[b]["kernel_bf16_ms"] = time_ms(
+            lambda: k2.fused_multimodal_probs(xb, db, folded_mm, torch.bfloat16, weights=k3_w16),
+            reps=5)
+        crossover_bf16_k3 += k2.launches_mm - before
     p_mm_def = Predictor.from_checkpoint(CKPT_MM, arch="multimodal", precision="default")
     reps = -(-BIG // len(sigs_mm))
     mm512 = (np.concatenate([sigs_mm] * reps)[:BIG], np.concatenate([demos_mm] * reps)[:BIG])
@@ -3011,20 +3057,29 @@ def main(argv=None) -> int:
     if routing_mm["7"]["engine"] != "kernel" or routing_mm[str(BIG)]["engine"] != "framework":
         raise AssertionError(f"multimodal default routing: {routing_mm}")
     emit({"phase": "crossover_mm", "ms": crossover_mm,
+          "launches": {"fused_multimodal_bf16": crossover_bf16_k3},
           "kernel_max_batch": inference.KERNEL_MAX_BATCH,
           "kernel_max_batch_bf16": inference.KERNEL_MAX_BATCH_BF16,
           "default_auto": routing_mm, **crossover_n(crossover_mm)})
 
     # where K2's and K3's time goes: per-launch device time from the profiler (CUPTI)
-    breakdown, breakdown_mm = {}, {}
+    # (bf16: the bf16 form's launches, checked to be the stats, four wgmma blocks
+    # and the sums tail)
+    breakdown, breakdown_mm, bd16, bd16_mm = {}, {}, {}, {}
     for b in (1, BIG):
         xb, db = x_raw[:b].contiguous(), d_big[:b].contiguous()
         breakdown[b] = launch_breakdown(lambda: k2.fused_ecgcnn_logits(xb, folded, weights=k2_w))
         breakdown_mm[b] = launch_breakdown(
             lambda: k2.fused_multimodal_logits(xb, db, folded_mm, weights=k3_w))
-    for name, bd in (("k2_breakdown_ms", breakdown), ("k3_breakdown_ms", breakdown_mm)):
+        bd16[b] = split_breakdown(launch_breakdown(
+            lambda: k2.fused_ecgcnn_logits(xb, folded, torch.bfloat16, weights=k2_w16)))
+        bd16_mm[b] = split_breakdown(launch_breakdown(
+            lambda: k2.fused_multimodal_logits(xb, db, folded_mm, torch.bfloat16, weights=k3_w16)))
+    for name, bd, b16 in (("k2_breakdown_ms", breakdown, bd16),
+                          ("k3_breakdown_ms", breakdown_mm, bd16_mm)):
         emit({"phase": name, "batch": {str(b): v for b, v in bd.items()},
-              "conv_blocks_ms": {str(b): conv_block_ms(v) for b, v in bd.items()}})
+              "conv_blocks_ms": {str(b): conv_block_ms(v) for b, v in bd.items()},
+              "bf16": {str(b): v for b, v in b16.items()}})
 
     # the train step: device time per pool backward, and K6 beside its yardsticks
     step_times, k6_times = train_step_times(args.seed, gen)
@@ -3189,7 +3244,17 @@ def main(argv=None) -> int:
             entry["conv_blocks_ms"] = conv_block_ms(bd[BIG])
             errs = k2_err if name == "fused_ecgcnn" else k3_err
             entry["max_abs_err_bf16"] = max(v for k, v in errs.items() if k.endswith("bfloat16"))
+            # the bf16 form (K4's wgmma blocks and sums tail) beside cuDNN bf16
+            entry["ms_bf16"], entry["ms_bf16_b1"] = t5["ms_bf16"], t1["ms_bf16"]
+            entry["plain_ms_bf16"] = t5["plain_ms_bf16"]
+            entry["bound_bf16_ms"] = t5["bound_bf16"][0]
+            entry["bound_bf16_ms_b1"] = t1["bound_bf16"][0]
             entry["library_bf16_ms"] = t5["library_bf16_ms"]
+            entry["library_bf16_ms_b1"] = t1["library_bf16_ms"]
+            entry["conv_blocks_ms_bf16"] = (bd16 if name == "fused_ecgcnn"
+                                            else bd16_mm)[BIG]["block_ms"]
+            entry["launches_bf16_crossover"] = (crossover_bf16_k2 if name == "fused_ecgcnn"
+                                                else crossover_bf16_k3)
         else:
             entry["max_abs_err_bf16"] = err_k1_16
             entry["stats_ms"] = t5["stats_ms"]

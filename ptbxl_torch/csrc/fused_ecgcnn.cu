@@ -67,15 +67,15 @@
 // beside the backbone's 1.133 GFLOP, so K3's bound is K2's.
 // The same f32 conv block serves K4's f32 deep blocks (hybrid_ecgcnn.py).
 //
-// With bf16 compute every operand is rounded with __float2bfloat16_rn before
-// the multiply and sums stay f32 (JAX's preferred_element_type=f32); the conv
-// blocks then run ptbxl_conv_block_bf16, an FMA kernel: 256 threads own TR
-// conv rows x CO channels, stage the input tile and the weights 8 channels at
-// a time and keep a 4 x 4 register tile of sums a thread.  It also serves,
-// through ptbxl_conv_block_valid on a pre-padded input, the "direct" mode of
-// the P3 layer probe (tools/probe_layer_perf.py make_pallas_layer, :52).  In
-// K3 z_ecg enters the FiLM in f32 and only z_cond is rounded, as the head's
-// operand (_dot1, :252).
+// With bf16 compute (every operand rounded to bf16, sums in f32: JAX's
+// preferred_element_type=f32) K2 and K3 run K4's launches on the tensor cores
+// (hybrid_wgmma.cu: the wgmma conv block, then sums_tail or, for K3,
+// mm_sums_tail), so this file's tails are f32 only.  The bf16 FMA block below
+// (256 threads own TR conv rows x CO channels, stage the input tile and the
+// weights 8 channels at a time and keep a 4 x 4 register tile of sums a
+// thread) serves only ptbxl_conv_block_valid: on a pre-padded input, the
+// "direct" mode of the P3 layer probe (tools/probe_layer_perf.py
+// make_pallas_layer, :52).
 // Later work: wgmma with TF32 operands fed by TMA (mma.sync does not reach the
 // tensor cores' full rate), and fusing blocks so intermediates stay on chip.
 #include <cuda_bf16.h>
@@ -88,10 +88,8 @@ constexpr int kK = 15;          // conv taps
 constexpr int kPad = kK / 2;    // SAME padding
 constexpr int kSmemMax = 232448;  // shared memory a block may ask for
 
-template <bool kBf16>
-__device__ __forceinline__ float rnd(float v) {
-  if (kBf16) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
+__device__ __forceinline__ float rnd_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // -- the f32 conv block: 3xTF32 on the tensor cores --------------------------------
@@ -326,16 +324,13 @@ constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 4;  // conv rows, i.e. two pool windows
 constexpr int kColsPerThread = 4;
 
-// x [B, Tx, Cin] f32; conv row t in [0, T) reads rows t + k - off (zero
-// outside [0, Tx)): off = 7, Tx = T is SAME padding, off = 0, Tx = T + 14 a
-// pre-padded input; stats [B, Cin, 2] (mean, std+eps) or unused;
-// w [K, Cin, Cout] BN-folded; bias [Cout]; y [B, T/2, Cout].
-template <int kCO, bool kZscore>
+// x [B, Tx, Cin] f32, pre-padded: conv row t in [0, T = Tx - 14) reads rows
+// t .. t + 14 (VALID); w [K, Cin, Cout]; bias [Cout]; y [B, T/2, Cout].
+template <int kCO>
 __global__ void __launch_bounds__(kThreads)
-conv_block_bf16_kernel(const float* __restrict__ x, const float* __restrict__ stats,
-                       const float* __restrict__ w, const float* __restrict__ bias,
-                       float* __restrict__ y, int Tx, int T, int off, int Cin, int Cout,
-                       int row_tiles) {
+conv_block_bf16_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ bias, float* __restrict__ y, int Tx, int T,
+                       int Cin, int Cout, int row_tiles) {
   constexpr int kNX = kCO / kColsPerThread;   // threads across channels
   constexpr int kNY = kThreads / kNX;         // threads across rows
   constexpr int kTR = kNY * kRowsPerThread;   // conv rows per block
@@ -360,22 +355,15 @@ conv_block_bf16_kernel(const float* __restrict__ x, const float* __restrict__ st
   for (int c0 = 0; c0 < Cin; c0 += kCI) {
     for (int idx = threadIdx.x; idx < kInRows * kCI; idx += kThreads) {
       const int row = idx / kCI, ci = idx % kCI;
-      const int t = t0 - off + row, c = c0 + ci;
-      float v = 0.f;
-      if (t >= 0 && t < Tx && c < Cin) {
-        v = xr[(long)t * Cin + c];
-        if (kZscore) {
-          const float* st = stats + ((long)rec * Cin + c) * 2;
-          v = (v - st[0]) / st[1];
-        }
-      }
-      in_s[row * kStride + ci] = rnd<true>(v);
+      const int t = t0 + row, c = c0 + ci;
+      const float v = t < Tx && c < Cin ? xr[(long)t * Cin + c] : 0.f;
+      in_s[row * kStride + ci] = rnd_bf16(v);
     }
     for (int idx = threadIdx.x; idx < kK * kCI * kCO; idx += kThreads) {
       const int k = idx / (kCI * kCO), rem = idx % (kCI * kCO);
       const int ci = rem / kCO, co = rem % kCO;
       const int c = c0 + ci;
-      w_s[idx] = c < Cin ? rnd<true>(w[((long)k * Cin + c) * Cout + co0 + co]) : 0.f;
+      w_s[idx] = c < Cin ? rnd_bf16(w[((long)k * Cin + c) * Cout + co0 + co]) : 0.f;
     }
     __syncthreads();
 
@@ -416,7 +404,6 @@ conv_block_bf16_kernel(const float* __restrict__ x, const float* __restrict__ st
 }
 
 // h [B, T, C] -> logits [B, L]: g = mean_t h; z = g @ pw + pb; logits = z @ hw + hb.
-template <bool kBf16>
 __global__ void tail_kernel(const float* __restrict__ h, const float* __restrict__ pw,
                             const float* __restrict__ pb, const float* __restrict__ hw,
                             const float* __restrict__ hb, float* __restrict__ logits,
@@ -429,18 +416,18 @@ __global__ void tail_kernel(const float* __restrict__ h, const float* __restrict
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     float s = 0.f;
     for (int t = 0; t < T; ++t) s = fmaf(inv_t, hr[(long)t * C + c], s);  // ones/T matmul
-    g[c] = rnd<kBf16>(s);
+    g[c] = s;
   }
   __syncthreads();
   for (int f = threadIdx.x; f < F; f += blockDim.x) {
     float s = 0.f;
-    for (int c = 0; c < C; ++c) s = fmaf(g[c], rnd<kBf16>(pw[(long)c * F + f]), s);
-    z[f] = rnd<kBf16>(s + pb[f]);
+    for (int c = 0; c < C; ++c) s = fmaf(g[c], pw[(long)c * F + f], s);
+    z[f] = s + pb[f];
   }
   __syncthreads();
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     float s = 0.f;
-    for (int f = 0; f < F; ++f) s = fmaf(z[f], rnd<kBf16>(hw[(long)f * L + l]), s);
+    for (int f = 0; f < F; ++f) s = fmaf(z[f], hw[(long)f * L + l], s);
     logits[(long)blockIdx.x * L + l] = s + hb[l];
   }
 }
@@ -449,7 +436,6 @@ __global__ void tail_kernel(const float* __restrict__ h, const float* __restrict
 // g = mean_t h; z_ecg = g @ pw + pb; h1 = relu(demo @ w1 + b1);
 // h2 = relu(h1 @ w2 + b2); film = h2 @ wf + bf; gamma = 1 + tanh(film[:F]);
 // z = gamma * z_ecg + film[F:]; logits = z @ hw + hb.
-template <bool kBf16>
 __global__ void mm_tail_kernel(const float* __restrict__ h, const float* __restrict__ pw,
                                const float* __restrict__ pb, const float* __restrict__ w1,
                                const float* __restrict__ b1, const float* __restrict__ w2,
@@ -459,53 +445,53 @@ __global__ void mm_tail_kernel(const float* __restrict__ h, const float* __restr
                                float* __restrict__ logits, int T, int C, int F, int D, int H1,
                                int H, int L) {
   extern __shared__ float sm[];
-  float* g = sm;           // [C]  product operand
-  float* z = g + C;        // [F]  z_ecg in f32, then z_cond as the head's operand
-  float* d = z + F;        // [D]  product operand
-  float* h1 = d + D;       // [H1] product operand
-  float* h2 = h1 + H1;     // [H]  product operand
-  float* film = h2 + H;    // [2F] f32
+  float* g = sm;           // [C]
+  float* z = g + C;        // [F]  z_ecg, then z_cond
+  float* d = z + F;        // [D]
+  float* h1 = d + D;       // [H1]
+  float* h2 = h1 + H1;     // [H]
+  float* film = h2 + H;    // [2F]
   const long rec = blockIdx.x;
   const float* hr = h + rec * T * C;
   const float inv_t = 1.f / (float)T;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     float s = 0.f;
     for (int t = 0; t < T; ++t) s = fmaf(inv_t, hr[(long)t * C + c], s);  // ones/T matmul
-    g[c] = rnd<kBf16>(s);
+    g[c] = s;
   }
-  for (int k = threadIdx.x; k < D; k += blockDim.x) d[k] = rnd<kBf16>(demo[rec * D + k]);
+  for (int k = threadIdx.x; k < D; k += blockDim.x) d[k] = demo[rec * D + k];
   __syncthreads();
   for (int f = threadIdx.x; f < F; f += blockDim.x) {
     float s = 0.f;
-    for (int c = 0; c < C; ++c) s = fmaf(g[c], rnd<kBf16>(pw[(long)c * F + f]), s);
+    for (int c = 0; c < C; ++c) s = fmaf(g[c], pw[(long)c * F + f], s);
     z[f] = s + pb[f];
   }
   for (int j = threadIdx.x; j < H1; j += blockDim.x) {
     float s = 0.f;
-    for (int k = 0; k < D; ++k) s = fmaf(d[k], rnd<kBf16>(w1[(long)k * H1 + j]), s);
-    h1[j] = rnd<kBf16>(fmaxf(s + b1[j], 0.f));
+    for (int k = 0; k < D; ++k) s = fmaf(d[k], w1[(long)k * H1 + j], s);
+    h1[j] = fmaxf(s + b1[j], 0.f);
   }
   __syncthreads();
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
     float s = 0.f;
-    for (int k = 0; k < H1; ++k) s = fmaf(h1[k], rnd<kBf16>(w2[(long)k * H + j]), s);
-    h2[j] = rnd<kBf16>(fmaxf(s + b2[j], 0.f));
+    for (int k = 0; k < H1; ++k) s = fmaf(h1[k], w2[(long)k * H + j], s);
+    h2[j] = fmaxf(s + b2[j], 0.f);
   }
   __syncthreads();
   for (int j = threadIdx.x; j < 2 * F; j += blockDim.x) {
     float s = 0.f;
-    for (int k = 0; k < H; ++k) s = fmaf(h2[k], rnd<kBf16>(wf[(long)k * 2 * F + j]), s);
+    for (int k = 0; k < H; ++k) s = fmaf(h2[k], wf[(long)k * 2 * F + j], s);
     film[j] = s + bf[j];
   }
   __syncthreads();
   for (int f = threadIdx.x; f < F; f += blockDim.x) {
     const float gamma = 1.f + tanhf(film[f]);
-    z[f] = rnd<kBf16>(__fadd_rn(__fmul_rn(gamma, z[f]), film[F + f]));  // not fused, as in JAX
+    z[f] = __fadd_rn(__fmul_rn(gamma, z[f]), film[F + f]);  // not fused, as in JAX
   }
   __syncthreads();
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     float s = 0.f;
-    for (int f = 0; f < F; ++f) s = fmaf(z[f], rnd<kBf16>(hw[(long)f * L + l]), s);
+    for (int f = 0; f < F; ++f) s = fmaf(z[f], hw[(long)f * L + l], s);
     logits[rec * L + l] = s + hb[l];
   }
 }
@@ -588,40 +574,14 @@ int conv_block_tf32x3(int device, const void* x, const void* stats, const void* 
   return (int)TileSmall::launch(xs, ss, ws, bs, ys, B, T, Cin, CinP, Cout, st);
 }
 
-template <int kCO, bool kZscore>
-void launch_conv_bf16(const float* x, const float* stats, const float* w, const float* b,
-                      float* y, int B, int Tx, int T, int off, int Cin, int Cout,
-                      cudaStream_t st) {
-  constexpr int kTR = (kThreads / (kCO / kColsPerThread)) * kRowsPerThread;
-  const int conv_rows = 2 * (T / 2);
-  const int row_tiles = (conv_rows + kTR - 1) / kTR;
-  dim3 grid(B * row_tiles, Cout / kCO);
-  conv_block_bf16_kernel<kCO, kZscore><<<grid, kThreads, 0, st>>>(x, stats, w, b, y, Tx, T, off,
-                                                                 Cin, Cout, row_tiles);
-}
-
 template <int kCO>
-void dispatch_conv_bf16(const float* x, const float* stats, const float* w, const float* b,
-                        float* y, int B, int Tx, int T, int off, int Cin, int Cout,
-                        cudaStream_t st) {
-  if (stats) launch_conv_bf16<kCO, true>(x, stats, w, b, y, B, Tx, T, off, Cin, Cout, st);
-  else launch_conv_bf16<kCO, false>(x, stats, w, b, y, B, Tx, T, off, Cin, Cout, st);
-}
-
-int conv_block_bf16(int device, const void* x, const void* stats, const void* w, const void* b,
-                    void* y, int B, int Tx, int T, int off, int Cin, int Cout, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || T < 2 || Cin <= 0 || Cout <= 0 || Cout % 32) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xs = static_cast<const float*>(x);
-  const float* ss = static_cast<const float*>(stats);
-  const float* ws = static_cast<const float*>(w);
-  const float* bs = static_cast<const float*>(b);
-  float* ys = static_cast<float*>(y);
-  if (Cout % 64 == 0) dispatch_conv_bf16<64>(xs, ss, ws, bs, ys, B, Tx, T, off, Cin, Cout, st);
-  else dispatch_conv_bf16<32>(xs, ss, ws, bs, ys, B, Tx, T, off, Cin, Cout, st);
-  return (int)cudaGetLastError();
+void launch_conv_bf16(const float* x, const float* w, const float* b, float* y, int B, int Tx,
+                      int Cin, int Cout, cudaStream_t st) {
+  constexpr int kTR = (kThreads / (kCO / kColsPerThread)) * kRowsPerThread;
+  const int T = Tx - (kK - 1);
+  const int row_tiles = (2 * (T / 2) + kTR - 1) / kTR;
+  dim3 grid(B * row_tiles, Cout / kCO);
+  conv_block_bf16_kernel<kCO><<<grid, kThreads, 0, st>>>(x, w, b, y, Tx, T, Cin, Cout, row_tiles);
 }
 
 }  // namespace
@@ -638,25 +598,27 @@ int ptbxl_conv_block_tf32x3(int device, const void* x, const void* stats, const 
   return conv_block_tf32x3(device, x, stats, w3, b, y, B, T, Cin, CinP, Cout, stream);
 }
 
-// One conv block with bf16 operands and f32 sums, SAME padding.  stats may be
-// null (no z-score on load); w [15, Cin, Cout] f32.  Cout % 32 == 0, T >= 2.
-int ptbxl_conv_block_bf16(int device, const void* x, const void* stats, const void* w,
-                          const void* b, void* y, int B, int T, int Cin, int Cout,
-                          void* stream) {
-  return conv_block_bf16(device, x, stats, w, b, y, B, T, T, kPad, Cin, Cout, stream);
-}
-
 // One bf16 conv block on a pre-padded input x [B, Tx, Cin]: conv length T =
 // Tx - 14 (VALID), no z-score; y [B, T/2, Cout] (the P3 probe's "direct" layer).
 int ptbxl_conv_block_valid(int device, const void* x, const void* w, const void* b, void* y,
                            int B, int Tx, int Cin, int Cout, void* stream) {
-  return conv_block_bf16(device, x, nullptr, w, b, y, B, Tx, Tx - (kK - 1), 0, Cin, Cout, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || Tx < kK + 1 || Cin <= 0 || Cout <= 0 || Cout % 32)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xs = static_cast<const float*>(x);
+  const float* ws = static_cast<const float*>(w);
+  const float* bs = static_cast<const float*>(b);
+  float* ys = static_cast<float*>(y);
+  if (Cout % 64 == 0) launch_conv_bf16<64>(xs, ws, bs, ys, B, Tx, Cin, Cout, st);
+  else launch_conv_bf16<32>(xs, ws, bs, ys, B, Tx, Cin, Cout, st);
+  return (int)cudaGetLastError();
 }
 
 // Mean over T + proj + head.  h [B, T, C]; pw [C, F]; hw [F, L]; logits [B, L].
 int ptbxl_tail(int device, const void* h, const void* pw, const void* pb, const void* hw,
-               const void* hb, void* logits, int B, int T, int C, int F, int L, int bf16,
-               void* stream) {
+               const void* hb, void* logits, int B, int T, int C, int F, int L, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T <= 0 || C <= 0 || F <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
@@ -668,8 +630,7 @@ int ptbxl_tail(int device, const void* h, const void* pw, const void* pb, const 
   const float* hws = static_cast<const float*>(hw);
   const float* hbs = static_cast<const float*>(hb);
   float* out = static_cast<float*>(logits);
-  if (bf16) tail_kernel<true><<<B, 256, smem, st>>>(hs, pws, pbs, hws, hbs, out, T, C, F, L);
-  else tail_kernel<false><<<B, 256, smem, st>>>(hs, pws, pbs, hws, hbs, out, T, C, F, L);
+  tail_kernel<<<B, 256, smem, st>>>(hs, pws, pbs, hws, hbs, out, T, C, F, L);
   return (int)cudaGetLastError();
 }
 
@@ -679,7 +640,7 @@ int ptbxl_tail(int device, const void* h, const void* pw, const void* pb, const 
 int ptbxl_mm_tail(int device, const void* h, const void* pw, const void* pb, const void* fc1_w,
                   const void* fc1_b, const void* fc2_w, const void* fc2_b, const void* film_w,
                   const void* film_b, const void* hw, const void* hb, const void* demo,
-                  void* logits, int B, int T, int C, int F, int D, int H1, int H, int L, int bf16,
+                  void* logits, int B, int T, int C, int F, int D, int H1, int H, int L,
                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -690,14 +651,9 @@ int ptbxl_mm_tail(int device, const void* h, const void* pw, const void* pb, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   float* out = static_cast<float*>(logits);
-  if (bf16)
-    mm_tail_kernel<true><<<B, 256, smem, st>>>(f(h), f(pw), f(pb), f(fc1_w), f(fc1_b), f(fc2_w),
-                                               f(fc2_b), f(film_w), f(film_b), f(hw), f(hb),
-                                               f(demo), out, T, C, F, D, H1, H, L);
-  else
-    mm_tail_kernel<false><<<B, 256, smem, st>>>(f(h), f(pw), f(pb), f(fc1_w), f(fc1_b), f(fc2_w),
-                                                f(fc2_b), f(film_w), f(film_b), f(hw), f(hb),
-                                                f(demo), out, T, C, F, D, H1, H, L);
+  mm_tail_kernel<<<B, 256, smem, st>>>(f(h), f(pw), f(pb), f(fc1_w), f(fc1_b), f(fc2_w),
+                                       f(fc2_b), f(film_w), f(film_b), f(hw), f(hb), f(demo), out,
+                                       T, C, F, D, H1, H, L);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,9 @@
 // (_xla_front, :44: the z-score and the first `split` blocks).  On the card no
 // block is left to a library: the z-score's statistics come from K1
 // (zscore_stats), every block is a launch of the kernel below, and the tail is
-// one small kernel.
+// one small kernel.  The same launches are K2's bf16 forward
+// (ptbxl_tpu/ops/pallas/fused_ecgcnn.py _make_kernel, :89, with compute_dtype
+// bf16: the same function), and with mm_sums_tail K3's (_make_mm_kernel, :260).
 //
 // What it computes: conv k=15 SAME with bf16 operands and f32 sums, + the f32
 // bias, ReLU and the floor MaxPool(2), as the JAX blocks do.  Block 0 reads the
@@ -806,6 +808,74 @@ __global__ void sums_tail_kernel(const float* __restrict__ part, const float* __
   }
 }
 
+// K3's bf16 tail on the same sums.  part [B, n_tiles, C] -> logits [B, L],
+// weights (in, out): g = sum_tiles (1/T) * part (tile order); z_ecg =
+// bf16(g) @ bf16(pw) + pb, kept in f32; h1 = relu(bf16(demo) @ bf16(w1) +
+// b1); h2 = relu(bf16(h1) @ bf16(w2) + b2); film = bf16(h2) @ bf16(wf) + bf;
+// gamma = 1 + tanh(film[:F]); z = gamma * z_ecg + film[F:]; logits = bf16(z)
+// @ bf16(hw) + hb.  As JAX's _make_mm_kernel in bf16 (_dot1 rounds both
+// operands of each product): z_ecg enters FiLM in f32, only z is rounded.
+// ~0.2 MFLOP a record, nothing beside the blocks' 1.133 GFLOP.
+__global__ void mm_sums_tail_kernel(const float* __restrict__ part, const float* __restrict__ pw,
+                                    const float* __restrict__ pb, const float* __restrict__ w1,
+                                    const float* __restrict__ b1, const float* __restrict__ w2,
+                                    const float* __restrict__ b2, const float* __restrict__ wf,
+                                    const float* __restrict__ bf, const float* __restrict__ hw,
+                                    const float* __restrict__ hb, const float* __restrict__ demo,
+                                    float* __restrict__ logits, int n_tiles, int T, int C, int F,
+                                    int D, int H1, int H, int L) {
+  extern __shared__ float sm[];
+  float* g = sm;         // [C]  product operand
+  float* z = g + C;      // [F]  z_ecg in f32, then z as the head's operand
+  float* d = z + F;      // [D]  product operand
+  float* h1 = d + D;     // [H1] product operand
+  float* h2 = h1 + H1;   // [H]  product operand
+  float* film = h2 + H;  // [2F] f32
+  const size_t rec = blockIdx.x;
+  const float* pr = part + rec * n_tiles * C;
+  const float inv_t = 1.f / (float)T;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < n_tiles; ++k) s = fmaf(inv_t, pr[(size_t)k * C + c], s);
+    g[c] = rnd_bf16(s);
+  }
+  for (int k = threadIdx.x; k < D; k += blockDim.x) d[k] = rnd_bf16(demo[rec * D + k]);
+  __syncthreads();
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < C; ++c) s = fmaf(g[c], rnd_bf16(pw[(size_t)c * F + f]), s);
+    z[f] = s + pb[f];
+  }
+  for (int j = threadIdx.x; j < H1; j += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < D; ++k) s = fmaf(d[k], rnd_bf16(w1[(size_t)k * H1 + j]), s);
+    h1[j] = rnd_bf16(fmaxf(s + b1[j], 0.f));
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < H; j += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < H1; ++k) s = fmaf(h1[k], rnd_bf16(w2[(size_t)k * H + j]), s);
+    h2[j] = rnd_bf16(fmaxf(s + b2[j], 0.f));
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < 2 * F; j += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < H; ++k) s = fmaf(h2[k], rnd_bf16(wf[(size_t)k * 2 * F + j]), s);
+    film[j] = s + bf[j];
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    const float gamma = 1.f + tanhf(film[f]);
+    z[f] = rnd_bf16(__fadd_rn(__fmul_rn(gamma, z[f]), film[F + f]));  // not fused, as in JAX
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    float s = 0.f;
+    for (int f = 0; f < F; ++f) s = fmaf(z[f], rnd_bf16(hw[(size_t)f * L + l]), s);
+    logits[rec * L + l] = s + hb[l];
+  }
+}
+
 // the calling thread's device, set only when it differs
 cudaError_t ensure_device(int device) {
   int cur = -1;
@@ -892,6 +962,28 @@ int ptbxl_sums_tail(int device, const void* part, const void* pw, const void* pb
       static_cast<const float*>(part), static_cast<const float*>(pw),
       static_cast<const float*>(pb), static_cast<const float*>(hw),
       static_cast<const float*>(hb), static_cast<float*>(logits), n_tiles, T, C, F, L);
+  return (int)cudaGetLastError();
+}
+
+// K3's bf16 tail on the last block's channel sums.  part [B, n_tiles, C] f32;
+// T the pooled length; pw [C, F]; fc1_w [D, H1]; fc2_w [H1, H]; film_w [H,
+// 2F]; hw [F, L]; demo [B, D]; logits [B, L] f32.
+int ptbxl_mm_sums_tail(int device, const void* part, const void* pw, const void* pb,
+                       const void* fc1_w, const void* fc1_b, const void* fc2_w, const void* fc2_b,
+                       const void* film_w, const void* film_b, const void* hw, const void* hb,
+                       const void* demo, void* logits, int B, int n_tiles, int T, int C, int F,
+                       int D, int H1, int H, int L, void* stream) {
+  cudaError_t err = ensure_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || n_tiles <= 0 || T <= 0 || C <= 0 || F <= 0 || D <= 0 || H1 <= 0 || H <= 0 ||
+      L <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(C + 3 * F + D + H1 + H) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // no attribute asked for
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  mm_sums_tail_kernel<<<B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      f(part), f(pw), f(pb), f(fc1_w), f(fc1_b), f(fc2_w), f(fc2_b), f(film_w), f(film_b), f(hw),
+      f(hb), f(demo), static_cast<float*>(logits), n_tiles, T, C, F, D, H1, H, L);
   return (int)cudaGetLastError();
 }
 

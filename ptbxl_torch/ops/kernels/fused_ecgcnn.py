@@ -21,20 +21,29 @@ as ``big + small`` in registers, the weights once on the host
 (``prepare_weights``), and each product is three TF32 ``mma.sync`` products
 with f32 sums, to about 2^-22 of each product; the z-score is applied while
 block 0's input is staged, and bias, ReLU and the floor pool happen in the
-epilogue.  In bf16 it is an FMA kernel with bf16-rounded operands.
-Intermediates go through device memory, allocated here with
+epilogue.  Intermediates go through device memory, allocated here with
 ``torch.empty``; the source says why that costs little.  K3 runs the same
 backbone launches and ends in its own tail kernel (mean over T, proj,
 demographics MLP, FiLM, head); its bound is K2's.  Left for later: ``wgmma``
 with TF32 operands fed by TMA, and fusing blocks.
+
+In bf16 both run K4's launch sequence on the tensor cores
+(``hybrid_ecgcnn.wgmma_sums``): the stats, one ``wgmma`` conv block a block
+with bf16 activations between blocks and the last block's per-tile channel
+sums, then ``sums_tail`` (K2) or ``mm_sums_tail`` (K3).  JAX keeps f32
+between its bf16 blocks and rounds at the next conv; ReLU and the pool
+commute with round-to-nearest, so storing in bf16 is the same value.  Their
+weights are ``hybrid_ecgcnn.prepare_weights(folded, torch.bfloat16)``.
 
 A CPU tensor takes the plain versions (``fused_ecgcnn_logits_plain``,
 ``fused_multimodal_logits_plain``), which follow ``_make_kernel``'s and
 ``_make_mm_kernel``'s arithmetic: 15 shifted products in exact f32 (TF32
 off), the folded bias, the floor pool, a ones-mean and bf16 operand rounding
 where the JAX products round.  A CUDA tensor launches the kernels or raises.
-``launches`` counts K2 forwards launched on the card and ``launches_mm`` K3
-forwards (each is the sequence above).
+``card_logits`` / ``card_mm_logits`` on CPU tensors run the card's launch
+sequence with every launch's plain version.  ``launches`` counts K2 forwards
+launched on the card and ``launches_mm`` K3 forwards (each is the sequence
+above, in either dtype).
 
 The probability forwards are also the custom ops ``ptbxl::fused_ecgcnn_probs``
 and ``ptbxl::fused_multimodal_probs`` (registered when this module is
@@ -48,7 +57,7 @@ dispatch.  The fake implementation gives ``[B, L]`` f32 from the shapes alone.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -70,15 +79,13 @@ _I, _P = _build.INT, _build.VOIDP
 _SIGNATURES = {
     # device, x, stats, w3, b, y, B, T, Cin, CinP, Cout, stream
     "ptbxl_conv_block_tf32x3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # device, x, stats, w, b, y, B, T, Cin, Cout, stream
-    "ptbxl_conv_block_bf16": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, x, w, b, y, B, Tx, Cin, Cout, stream (pre-padded x, P3's direct layer)
     "ptbxl_conv_block_valid": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # device, h, pw, pb, hw, hb, logits, B, T, C, F, L, bf16, stream
-    "ptbxl_tail": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # device, h, pw, pb, hw, hb, logits, B, T, C, F, L, stream
+    "ptbxl_tail": [_I] + [_P] * 6 + [_I] * 5 + [_P],
     # device, h, pw, pb, fc1_w, fc1_b, fc2_w, fc2_b, film_w, film_b, hw, hb, demo, logits,
-    # B, T, C, F, D, H1, H, L, bf16, stream
-    "ptbxl_mm_tail": [_I] + [_P] * 13 + [_I] * 9 + [_P],
+    # B, T, C, F, D, H1, H, L, stream
+    "ptbxl_mm_tail": [_I] + [_P] * 13 + [_I] * 8 + [_P],
 }
 
 Folded = Dict[str, object]
@@ -198,14 +205,21 @@ def fused_multimodal_logits_plain(x: torch.Tensor, demo: torch.Tensor, folded: F
     _check_labels(folded)
     with highest_precision():
         z_ecg = _z_ecg_plain(x, folded, compute_dtype, normalize)
-        d = demo.float()
-        h1 = torch.relu(_dot1(d, folded["fc1_w"], compute_dtype) + folded["fc1_b"])
-        h2 = torch.relu(_dot1(h1, folded["fc2_w"], compute_dtype) + folded["fc2_b"])
-        film = _dot1(h2, folded["film_w"], compute_dtype) + folded["film_b"]
-        feat = z_ecg.shape[1]
-        gamma = 1.0 + torch.tanh(film[:, :feat])
-        z_cond = gamma * z_ecg + film[:, feat:]
-        return _dot1(z_cond, folded["head_w"], compute_dtype) + folded["head_b"]
+        return _mm_tail_plain(z_ecg, demo, folded, compute_dtype)
+
+
+def _mm_tail_plain(z_ecg: torch.Tensor, demo: torch.Tensor, folded: Folded,
+                   compute_dtype: torch.dtype) -> torch.Tensor:
+    """K3's tail after proj: the demographics MLP, FiLM and the head, both
+    operands of every product rounded to ``compute_dtype``; z_ecg [B, F] f32."""
+    d = demo.float()
+    h1 = torch.relu(_dot1(d, folded["fc1_w"], compute_dtype) + folded["fc1_b"])
+    h2 = torch.relu(_dot1(h1, folded["fc2_w"], compute_dtype) + folded["fc2_b"])
+    film = _dot1(h2, folded["film_w"], compute_dtype) + folded["film_b"]
+    feat = z_ecg.shape[1]
+    gamma = 1.0 + torch.tanh(film[:, :feat])
+    z_cond = gamma * z_ecg + film[:, feat:]
+    return _dot1(z_cond, folded["head_w"], compute_dtype) + folded["head_b"]
 
 
 def tf32x3_weight(w: torch.Tensor) -> torch.Tensor:
@@ -228,6 +242,34 @@ def prepare_weights(folded: Folded) -> list:
     """The f32 conv blocks' split weights (``tf32x3_weight``), one a block, built
     once and passed as ``weights``; without them a call builds its own."""
     return [tf32x3_weight(folded[f"w{i}"]) for i in range(int(folded["n_blocks"]))]
+
+
+Weights = Union[list, Mapping[str, object]]
+
+
+def block_weights(folded: Folded, compute_dtype: torch.dtype,
+                  weights: Optional[Weights] = None) -> list:
+    """The conv blocks' weights for ``compute_dtype``, one a block.
+
+    ``weights``: f32, ``prepare_weights(folded)``; bf16, the ``wgmma``
+    block's (``hybrid_ecgcnn.prepare_weights(folded, torch.bfloat16)``); that
+    function's dict for either dtype, or its list of blocks; None builds
+    them.  Weights prepared for the other dtype raise."""
+    from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+
+    if weights is None:
+        return k4.prepare_weights(folded, compute_dtype)["blocks"]
+    if isinstance(weights, Mapping):
+        prepared, blocks = weights["dtype"], list(weights["blocks"])
+    else:
+        blocks = list(weights)
+        prepared = blocks[0].dtype if blocks else compute_dtype  # wg_weight bf16, tf32x3 f32
+    if prepared != compute_dtype:
+        raise ValueError(f"weights were prepared for {prepared}, not {compute_dtype}")
+    n_blocks = int(folded["n_blocks"])
+    if len(blocks) != n_blocks:
+        raise ValueError(f"weights hold {len(blocks)} blocks, the model {n_blocks}")
+    return blocks
 
 
 def conv_block_tf32x3_plain(x: torch.Tensor, w3: torch.Tensor, b: torch.Tensor,
@@ -294,45 +336,31 @@ def _check(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype) -> None:
             raise ValueError(f"folded[{key!r}] must be contiguous f32 on {x.device}")
 
 
-def _backbone(x: torch.Tensor, folded: Folded, bf16: int, normalize: bool,
-              weights: Optional[list]) -> torch.Tensor:
-    """Launch ``zscore_stats`` (when ``normalize``) and one conv-block kernel a block:
-    the 3xTF32 block with ``weights`` (``prepare_weights``, built here when None)
-    in f32, the bf16 block in bf16 (CUDA tensors only)."""
-    b, t, _ = x.shape
+def _backbone(x: torch.Tensor, folded: Folded, normalize: bool, blocks: list) -> torch.Tensor:
+    """Launch ``zscore_stats`` (when ``normalize``) and one 3xTF32 conv block a
+    block with ``blocks`` (``prepare_weights``): the f32 backbone."""
     stats = zscore_stats(x) if normalize else None
-    n_blocks = int(folded["n_blocks"])
-    if not bf16:
-        weights = prepare_weights(folded) if weights is None else weights
-        if len(weights) != n_blocks:
-            raise ValueError(f"weights hold {len(weights)} blocks, the model {n_blocks}")
     h = x
-    for i in range(n_blocks):
-        w, bias = folded[f"w{i}"], folded[f"b{i}"]
-        st = stats if i == 0 else None
-        if bf16:
-            cin, cout = w.shape[1], w.shape[2]
-            y = torch.empty((b, t // 2, cout), dtype=torch.float32, device=x.device)
-            lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
-            err = lib.ptbxl_conv_block_bf16(
-                x.get_device(), h.data_ptr(), None if st is None else st.data_ptr(),
-                w.data_ptr(), bias.data_ptr(), y.data_ptr(), b, t, cin, cout,
-                torch.cuda.current_stream(x.device).cuda_stream)
-            _build.check(lib, err, f"conv block {i} launch")
-        else:
-            y = conv_block_tf32x3(h, weights[i], bias, st)
-        h, t = y, t // 2
+    for i, w3 in enumerate(blocks):
+        h = conv_block_tf32x3(h, w3, folded[f"b{i}"], stats if i == 0 else None)
     return h
 
 
 def card_logits(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype,
-                normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
-    """K2's launch sequence, not counted: ``_backbone``, then the tail kernel
-    (``ptbxl_tail``: mean over T, proj, head) -> logits [B, L].  K4 runs it
-    as its f32 route.  On CPU tensors (f32) each launch takes its plain
-    version: the 3xTF32 blocks' and an exact-f32 tail."""
-    bf16 = int(compute_dtype == torch.bfloat16)
-    h = _backbone(x, folded, bf16, normalize, weights)
+                normalize: bool = True, weights: Optional[Weights] = None) -> torch.Tensor:
+    """K2's launch sequence, not counted -> logits [B, L].  f32: ``_backbone``,
+    then the tail kernel (``ptbxl_tail``: mean over T, proj, head); K4 runs it
+    as its f32 route.  bf16: K4's bf16 route (``hybrid_ecgcnn.wgmma_sums``,
+    then ``sums_tail``).  ``weights`` as ``block_weights`` takes them.  On
+    CPU tensors each launch takes its plain version (f32: the 3xTF32 blocks'
+    and an exact-f32 tail)."""
+    blocks = block_weights(folded, compute_dtype, weights)
+    if compute_dtype == torch.bfloat16:
+        from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+
+        part, t = k4.wgmma_sums(x, folded, blocks, normalize)
+        return k4.sums_tail(part, t, folded)
+    h = _backbone(x, folded, normalize, blocks)
     pw, hw = folded["proj_w"], folded["head_w"]
     if h.device.type == "cpu":
         with highest_precision():
@@ -343,28 +371,32 @@ def card_logits(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype,
     err = lib.ptbxl_tail(
         h.get_device(), h.data_ptr(), pw.data_ptr(), folded["proj_b"].data_ptr(), hw.data_ptr(),
         folded["head_b"].data_ptr(), logits.data_ptr(), b, h.shape[1], pw.shape[0], pw.shape[1],
-        num_labels, bf16, torch.cuda.current_stream(h.device).cuda_stream)
+        num_labels, torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, "tail launch")
     return logits
 
 
 def fused_ecgcnn_logits(x: torch.Tensor, folded: Folded,
                         compute_dtype: torch.dtype = torch.float32,
-                        normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+                        normalize: bool = True, weights: Optional[Weights] = None
+                        ) -> torch.Tensor:
     """x: [B, T, 12] raw signals -> logits [B, num_labels].
 
     ``folded`` from ``fold_bn_into_conv`` on x's device.  ``normalize``
     applies the per-lead z-score (False for pre-normalized input).
-    ``weights`` from ``prepare_weights(folded)`` (f32 only), or None to build them.
+    ``weights`` for ``compute_dtype`` (``block_weights``: f32
+    ``prepare_weights(folded)``, bf16 ``hybrid_ecgcnn.prepare_weights(folded,
+    torch.bfloat16)``), or None to build them.
     """
     global launches
     if x.device.type == "cpu":
         return fused_ecgcnn_logits_plain(x, folded, compute_dtype, normalize)
+    blocks = block_weights(folded, compute_dtype, weights)
     _check(x, folded, compute_dtype)
     x = x.contiguous()
     if x.shape[0] == 0:
         return torch.empty((0, folded["head_b"].shape[0]), dtype=torch.float32, device=x.device)
-    logits = card_logits(x, folded, compute_dtype, normalize, weights)
+    logits = card_logits(x, folded, compute_dtype, normalize, blocks)
     launches += 1
     return logits
 
@@ -374,10 +406,13 @@ _MM_DENSE = ("proj_w", "proj_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "film_w", "
              "head_w", "head_b")
 
 
-def _op_params(folded: Folded, weights: Optional[list], dense: Sequence[str]) -> List[torch.Tensor]:
+def _op_params(folded: Folded, weights: Optional[Weights], dense: Sequence[str]
+               ) -> List[torch.Tensor]:
     """The custom ops' tensor list: ``w0, b0, .., w{n-1}, b{n-1}``, the dense
-    tail in ``dense`` order, then the split weights (none: built per call)."""
+    tail in ``dense`` order, then the blocks' weights (none: built per call)."""
     n = int(folded["n_blocks"])
+    if isinstance(weights, Mapping):
+        weights = weights["blocks"]
     return ([folded[f"{p}{i}"] for i in range(n) for p in "wb"]
             + [folded[k] for k in dense] + list(weights or []))
 
@@ -413,22 +448,73 @@ def _(x, params, n_blocks, normalize, bf16):
 
 def fused_ecgcnn_probs(x: torch.Tensor, folded: Folded,
                        compute_dtype: torch.dtype = torch.float32,
-                       normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+                       normalize: bool = True, weights: Optional[Weights] = None
+                       ) -> torch.Tensor:
     return torch.sigmoid(fused_ecgcnn_logits(x, folded, compute_dtype, normalize, weights))
 
 
 def fused_ecgcnn_probs_op(x: torch.Tensor, folded: Folded,
                           compute_dtype: torch.dtype = torch.float32,
-                          normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+                          normalize: bool = True, weights: Optional[Weights] = None
+                          ) -> torch.Tensor:
     """``fused_ecgcnn_probs`` as one call of ``ptbxl::fused_ecgcnn_probs``."""
     return torch.ops.ptbxl.fused_ecgcnn_probs(
         x, _op_params(folded, weights, _ECG_DENSE), int(folded["n_blocks"]), normalize,
         compute_dtype == torch.bfloat16)
 
 
+def _check_mm_dense(folded: Folded, c: int) -> None:
+    """K3's dense tail: proj_w [C, F], fc1_w [D, H1], fc2_w [H1, H], film_w
+    [H, 2F], head_w [F, L] (L <= ``MAX_LABELS``) for the backbone's C channels."""
+    _check_labels(folded)
+    f, h1 = folded["proj_w"].shape[1], folded["fc1_w"].shape[1]
+    want = {"proj_w": (c, f), "fc2_w": (h1, folded["fc2_w"].shape[1]),
+            "film_w": (folded["fc2_w"].shape[1], 2 * f),
+            "head_w": (f, folded["head_b"].shape[0])}
+    for key, shape in want.items():
+        if tuple(folded[key].shape) != shape:
+            raise ValueError(f"folded[{key!r}] must be {shape}, got {tuple(folded[key].shape)}")
+
+
+def card_mm_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
+                   compute_dtype: torch.dtype, normalize: bool = True,
+                   weights: Optional[Weights] = None) -> torch.Tensor:
+    """K3's launch sequence, not counted -> logits [B, L].  f32: ``_backbone``,
+    then the tail kernel (``ptbxl_mm_tail``: mean over T, proj, demographics
+    MLP, FiLM, head).  bf16: K4's ``wgmma`` backbone (``hybrid_ecgcnn.
+    wgmma_sums``), then ``hybrid_ecgcnn.mm_sums_tail`` on the last block's
+    tile sums.  ``weights`` as ``block_weights`` takes them.  On CPU tensors
+    each launch takes its plain version."""
+    blocks = block_weights(folded, compute_dtype, weights)
+    if compute_dtype == torch.bfloat16:
+        from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4
+
+        part, t = k4.wgmma_sums(x, folded, blocks, normalize)
+        return k4.mm_sums_tail(part, t, folded, demo)
+    h = _backbone(x, folded, normalize, blocks)
+    pw = folded["proj_w"]
+    if h.device.type == "cpu":
+        with highest_precision():
+            z_ecg = h.mean(1) @ pw + folded["proj_b"]
+            return _mm_tail_plain(z_ecg, demo, folded, torch.float32)
+    b, t, c = h.shape
+    f, d_in, h1, hid = pw.shape[1], demo.shape[1], folded["fc1_w"].shape[1], folded["fc2_w"].shape[1]
+    num_labels = folded["head_b"].shape[0]
+    ptrs = [folded[f"{n}_{s}"].data_ptr() for n in ("proj", "fc1", "fc2", "film", "head")
+            for s in "wb"]
+    logits = torch.empty((b, num_labels), dtype=torch.float32, device=x.device)
+    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
+    err = lib.ptbxl_mm_tail(
+        x.get_device(), h.data_ptr(), *ptrs, demo.data_ptr(), logits.data_ptr(),
+        b, t, c, f, d_in, h1, hid, num_labels, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "multimodal tail launch")
+    return logits
+
+
 def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
                             compute_dtype: torch.dtype = torch.float32,
-                            normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+                            normalize: bool = True, weights: Optional[Weights] = None
+                            ) -> torch.Tensor:
     """x: [B, T, 12] raw signals, demo: [B, 5] -> logits [B, num_labels] (K3).
 
     ``folded`` from ``fold_multimodal`` on x's device; the demo rows are
@@ -439,6 +525,7 @@ def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
     _check_labels(folded)
     if x.device.type == "cpu":
         return fused_multimodal_logits_plain(x, demo, folded, compute_dtype, normalize)
+    blocks = block_weights(folded, compute_dtype, weights)
     _check(x, folded, compute_dtype)
     b = x.shape[0]
     d_in = folded["fc1_w"].shape[0]
@@ -446,28 +533,11 @@ def fused_multimodal_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
             or tuple(demo.shape) != (b, d_in)):
         raise ValueError(f"demo must be f32 [{b}, {d_in}] on {x.device}, "
                          f"got {demo.dtype} {tuple(demo.shape)} on {demo.device}")
+    _check_mm_dense(folded, folded[f"w{int(folded['n_blocks']) - 1}"].shape[2])
     x, demo = x.contiguous(), demo.contiguous()
-    num_labels = folded["head_b"].shape[0]
     if b == 0:
-        return torch.empty((0, num_labels), dtype=torch.float32, device=x.device)
-    bf16 = int(compute_dtype == torch.bfloat16)
-    h = _backbone(x, folded, bf16, normalize, weights)
-    pw, w1, w2 = folded["proj_w"], folded["fc1_w"], folded["fc2_w"]
-    c, f, h1, hid = pw.shape[0], pw.shape[1], w1.shape[1], w2.shape[1]
-    want = {"proj_w": (h.shape[2], f), "fc2_w": (h1, hid), "film_w": (hid, 2 * f),
-            "head_w": (f, num_labels)}
-    for key, shape in want.items():
-        if tuple(folded[key].shape) != shape:
-            raise ValueError(f"folded[{key!r}] must be {shape}, got {tuple(folded[key].shape)}")
-    ptrs = [folded[f"{n}_{s}"].data_ptr() for n in ("proj", "fc1", "fc2", "film", "head")
-            for s in "wb"]
-    logits = torch.empty((b, num_labels), dtype=torch.float32, device=x.device)
-    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
-    err = lib.ptbxl_mm_tail(
-        x.get_device(), h.data_ptr(), *ptrs, demo.data_ptr(), logits.data_ptr(),
-        b, h.shape[1], c, f, d_in, h1, hid, num_labels, bf16,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "multimodal tail launch")
+        return torch.empty((0, folded["head_b"].shape[0]), dtype=torch.float32, device=x.device)
+    logits = card_mm_logits(x, demo, folded, compute_dtype, normalize, blocks)
     launches_mm += 1
     return logits
 
@@ -487,14 +557,15 @@ def _(x, demo, params, n_blocks, normalize, bf16):
 
 def fused_multimodal_probs(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
                            compute_dtype: torch.dtype = torch.float32,
-                           normalize: bool = True, weights: Optional[list] = None) -> torch.Tensor:
+                           normalize: bool = True, weights: Optional[Weights] = None
+                           ) -> torch.Tensor:
     return torch.sigmoid(fused_multimodal_logits(x, demo, folded, compute_dtype, normalize,
                                                  weights))
 
 
 def fused_multimodal_probs_op(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
                               compute_dtype: torch.dtype = torch.float32,
-                              normalize: bool = True, weights: Optional[list] = None
+                              normalize: bool = True, weights: Optional[Weights] = None
                               ) -> torch.Tensor:
     """``fused_multimodal_probs`` as one call of ``ptbxl::fused_multimodal_probs``."""
     return torch.ops.ptbxl.fused_multimodal_probs(

@@ -6,9 +6,10 @@ K4 replaces ``ptbxl_tpu/ops/pallas/hybrid_ecgcnn.py``: ``_make_tail_kernel``
 ``hybrid_ecgcnn_probs`` (:230).  P3's layer replaces
 ``tools/probe_layer_perf.py::make_pallas_layer`` (:52).  Kernels:
 ``ptbxl_torch/csrc/hybrid_wgmma.cu`` (K4's bf16 conv block on ``wgmma`` and
-its tail; the same block runs P3's and P4's layers), K2's 3xTF32 conv block
-and tail (``csrc/fused_ecgcnn.cu``, K4 in f32; K2's bf16 FMA block for P3's
-``direct`` mode) and K1's ``zscore_stats``.
+its tail; the same block runs P3's and P4's layers and K2's and K3's bf16
+forwards, with K3's own tail ``mm_sums_tail``), K2's 3xTF32 conv block and
+tail (``csrc/fused_ecgcnn.cu``, K4 in f32; the bf16 FMA block there serves
+P3's ``direct`` mode alone) and K1's ``zscore_stats``.
 
 What K4 computes (``hybrid_ecgcnn_logits``): the two-pass z-score when
 ``normalize``; every conv block, conv k=15 with ``compute_dtype`` operands
@@ -30,7 +31,10 @@ Design (the card route, ``card_route_logits``).  In bf16: ``zscore_stats``
 z-score while it stages its tile, each block stores its pooled output in
 bf16 (the value the next conv reads: JAX rounds it there), and the last
 block stores only its per-tile channel sums, which ``sums_tail`` adds in
-tile order before proj and head.  The source says how the kernel tiles; its
+tile order before proj and head (``wgmma_sums``, then ``sums_tail``, which
+K2's bf16 forward calls too; K3's ends in ``mm_sums_tail``: the same
+ones-mean, proj, the demographics MLP, FiLM and head).  The source says how
+the kernel tiles; its
 tile table (``PTBXL_WG_TILES``) is read from there into ``WG_TILES``.  In f32
 (which the JAX tests use) the route is K2's launch sequence
 (``fused_ecgcnn.card_logits``: 3xTF32 conv blocks, block 0 with the stats,
@@ -64,7 +68,7 @@ tile (``b_tile``) has no counterpart.
 
 A CPU tensor takes the plain versions (``hybrid_ecgcnn_logits_plain``, the
 JAX function step by step; ``wgmma_conv_block_plain``, which emulates the
-kernel's tiling; ``sums_tail_plain``; ``conv_layer_plain``,
+kernel's tiling; ``sums_tail_plain``; ``mm_sums_tail_plain``; ``conv_layer_plain``,
 ``conv_layer_cf_plain``); a CUDA tensor launches the kernels or raises.
 ``card_route_logits`` on CPU tensors runs the card's launch sequence with
 every launch's plain version; ``wgmma_conv_block_plain(..., valid=True)``
@@ -118,6 +122,9 @@ _WG_SIGNATURES = {
     "ptbxl_wgmma_conv_layer": [_I] + [_P] * 4 + [_I] * 7 + [_P],
     # device, part, pw, pb, hw, hb, logits, B, n_tiles, T, C, F, L, stream
     "ptbxl_sums_tail": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+    # device, part, pw, pb, fc1_w, fc1_b, fc2_w, fc2_b, film_w, film_b, hw, hb, demo, logits,
+    # B, n_tiles, T, C, F, D, H1, H, L, stream
+    "ptbxl_mm_sums_tail": [_I] + [_P] * 13 + [_I] * 9 + [_P],
 }
 
 
@@ -381,13 +388,20 @@ def wgmma_conv_block(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
     return y
 
 
-def sums_tail_plain(part: torch.Tensor, t: int, folded: Folded) -> torch.Tensor:
-    """Plain version of ``sums_tail``: the tiles' sums added in tile order, each
-    times 1/T (the ones-mean), then proj and head with bf16 operands."""
+def _tiles_mean(part: torch.Tensor, t: int) -> torch.Tensor:
+    """The tiles' sums [B, tiles, C] added in tile order, each times 1/T: the
+    ones-mean of the pooled rows, [B, C] f32."""
     inv_t = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(t), dtype=torch.float32)
     g = torch.zeros_like(part[:, 0])
     for k in range(part.shape[1]):
         g = g + inv_t.to(part.device) * part[:, k]
+    return g
+
+
+def sums_tail_plain(part: torch.Tensor, t: int, folded: Folded) -> torch.Tensor:
+    """Plain version of ``sums_tail``: the tiles' sums added in tile order, each
+    times 1/T (the ones-mean), then proj and head with bf16 operands."""
+    g = _tiles_mean(part, t)
     with highest_precision():
         z = _dot1(g, folded["proj_w"], torch.bfloat16) + folded["proj_b"]
         return _dot1(z, folded["head_w"], torch.bfloat16) + folded["head_b"]
@@ -413,6 +427,44 @@ def sums_tail(part: torch.Tensor, t: int, folded: Folded) -> torch.Tensor:
     return logits
 
 
+def mm_sums_tail_plain(part: torch.Tensor, t: int, folded: Folded,
+                       demo: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mm_sums_tail``: the ones-mean of ``sums_tail_plain``,
+    proj, then K3's plain bf16 tail (demographics MLP, FiLM, head; z_ecg enters
+    FiLM in f32)."""
+    g = _tiles_mean(part, t)
+    with highest_precision():
+        z_ecg = _dot1(g, folded["proj_w"], torch.bfloat16) + folded["proj_b"]
+        return k2._mm_tail_plain(z_ecg, demo, folded, torch.bfloat16)
+
+
+def mm_sums_tail(part: torch.Tensor, t: int, folded: Folded, demo: torch.Tensor) -> torch.Tensor:
+    """K3's bf16 tail: part [B, tiles, C] f32 (the last block's per-tile
+    channel sums), ``t`` its pooled length, demo [B, D] f32 -> logits [B, L]
+    f32, ``folded`` from ``fold_multimodal``.  A CPU tensor takes
+    ``mm_sums_tail_plain``."""
+    if part.device.type == "cpu":
+        return mm_sums_tail_plain(part, t, folded, demo)
+    bsz, n_tiles, c = part.shape
+    k2._check_mm_dense(folded, c)
+    d_in, num_labels = folded["fc1_w"].shape[0], folded["head_b"].shape[0]
+    if demo.dtype != torch.float32 or tuple(demo.shape) != (bsz, d_in):
+        raise ValueError(f"demo must be f32 [{bsz}, {d_in}], got {demo.dtype} {tuple(demo.shape)}")
+    dense = [folded[k] for k in k2._MM_DENSE]  # proj, fc1, fc2, film, head: w, b each
+    for name, v in [("part", part), ("demo", demo)] + list(zip(k2._MM_DENSE, dense)):
+        if v.device != part.device or v.dtype != torch.float32 or not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 on {part.device}")
+    logits = torch.empty((bsz, num_labels), dtype=torch.float32, device=part.device)
+    lib = _build.load_library("hybrid_wgmma", _WG_SIGNATURES)
+    err = lib.ptbxl_mm_sums_tail(
+        part.get_device(), part.data_ptr(), *[v.data_ptr() for v in dense], demo.data_ptr(),
+        logits.data_ptr(), bsz, n_tiles, t, c, folded["proj_w"].shape[1], d_in,
+        folded["fc1_w"].shape[1], folded["fc2_w"].shape[1], num_labels,
+        torch.cuda.current_stream(part.device).cuda_stream)
+    _build.check(lib, err, "multimodal sums tail launch")
+    return logits
+
+
 def prepare_weights(folded: Folded, compute_dtype: torch.dtype = torch.bfloat16) -> dict:
     """The card's weight layouts for ``compute_dtype``, built once, the same for
     every split: one a block, ``wg_weight`` in bf16, K2's split
@@ -429,15 +481,31 @@ def _check_weights(weights: Optional[dict], compute_dtype: torch.dtype) -> None:
         raise ValueError(f"weights were prepared for {weights['dtype']}, not {compute_dtype}")
 
 
+def wgmma_sums(x: torch.Tensor, folded: Folded, blocks: list,
+               normalize: bool = True) -> Tuple[torch.Tensor, int]:
+    """The bf16 backbone on ``wgmma``: ``zscore_stats`` (when ``normalize``),
+    one ``wgmma_conv_block`` a block with ``blocks`` (``wg_weight``), the last
+    with ``sums`` -> (part [B, tiles, C] f32, the pooled length the mean
+    divides by).  K2's, K3's and K4's bf16 backbone."""
+    stats = zscore_stats(x) if normalize else None
+    h, t = x, x.shape[1]
+    for i, wp in enumerate(blocks):
+        h = wgmma_conv_block(h, wp, folded[f"b{i}"], stats if i == 0 else None,
+                             sums=i == len(blocks) - 1)
+        t //= 2
+    return h, t
+
+
 def card_route_logits(x: torch.Tensor, folded: Folded, split: int = 2,
                       compute_dtype: torch.dtype = torch.bfloat16, normalize: bool = True,
                       weights: Optional[dict] = None) -> torch.Tensor:
     """K4's launch sequence: x [B, T, 12] raw f32 -> logits [B, L].
 
-    bf16: ``zscore_stats`` (when ``normalize``), one ``wgmma_conv_block`` a
-    block (the last with ``sums``), ``sums_tail``.  f32: K2's launch sequence
-    (``fused_ecgcnn.card_logits``).  With CPU tensors each launch takes its
-    plain version: the card's tiling and orders, emulated.
+    bf16: ``wgmma_sums`` (``zscore_stats`` when ``normalize``, one
+    ``wgmma_conv_block`` a block, the last with ``sums``), ``sums_tail``.
+    f32: K2's launch sequence (``fused_ecgcnn.card_logits``).  With CPU
+    tensors each launch takes its plain version: the card's tiling and
+    orders, emulated.
     """
     _check_args(folded, split)
     _check_weights(weights, compute_dtype)
@@ -445,14 +513,7 @@ def card_route_logits(x: torch.Tensor, folded: Folded, split: int = 2,
         weights = prepare_weights(folded, compute_dtype)
     if compute_dtype == torch.float32:
         return k2.card_logits(x, folded, compute_dtype, normalize, weights["blocks"])
-    n_blocks = int(folded["n_blocks"])
-    stats = zscore_stats(x) if normalize else None
-    h = x
-    for i in range(n_blocks):
-        t = h.shape[1]
-        h = wgmma_conv_block(h, weights["blocks"][i], folded[f"b{i}"], stats if i == 0 else None,
-                             sums=i == n_blocks - 1)
-    return sums_tail(h, t // 2, folded)
+    return sums_tail(*wgmma_sums(x, folded, weights["blocks"], normalize), folded)
 
 
 def _check_cuda(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype) -> None:
