@@ -1,0 +1,7 @@
+"""Records scored in the window over the window's seconds (records/s)."""
+
+
+def read(ctx):
+    if ctx.window.steps or not ctx.window.records:
+        return None
+    return ctx.window.records / ctx.window.seconds
