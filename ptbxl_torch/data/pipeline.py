@@ -38,6 +38,7 @@ from ptbxl_torch.io import native
 from ptbxl_torch.io.wfdb_io import read_header
 from ptbxl_torch.ops.adc_convert import adc_lt_to_physical_batch
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
+from ptbxl_torch.utils.profiling import span
 
 
 class _ParallelRecordReader:
@@ -184,6 +185,14 @@ def device_prefetch(
     sentinel to NaN, the host float path's arithmetic).  A producer error is
     raised in the consumer; a consumer that stops early releases the producer
     and drops the queued batches.
+
+    Under a ``torch.profiler`` session (``utils/profiling.py``) the consumer
+    records ``prefetch.wait`` around each take of a batch (the wait for the
+    queue, the stream wait and ``record_stream``), and the
+    producer's thread a root ``prefetch.batch`` a batch, holding
+    ``prefetch.read`` (the host iterator's next batch), ``prefetch.pin``
+    (contiguous, and on a GPU pinned) and on a GPU ``prefetch.copy`` (the
+    side stream's copies and conversion; ``bytes``).
     """
     dev = resolve_device(device)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -199,13 +208,17 @@ def device_prefetch(
         return out
 
     def to_device(batch):
-        out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        with span("prefetch.pin"):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+            if side is not None:
+                out = {k: v.pin_memory() for k, v in out.items()}
         if side is None:
             return convert(out), None
-        with torch.cuda.stream(side):
-            out = convert({k: v.pin_memory().to(dev, non_blocking=True) for k, v in out.items()})
-            ready = torch.cuda.Event()
-            ready.record(side)
+        with span("prefetch.copy", bytes=sum(v.nbytes for v in out.values())):
+            with torch.cuda.stream(side):
+                out = convert({k: v.to(dev, non_blocking=True) for k, v in out.items()})
+                ready = torch.cuda.Event()
+                ready.record(side)
         return out, ready
 
     def put(item) -> bool:
@@ -222,8 +235,15 @@ def device_prefetch(
 
     def producer():
         try:
-            for batch in host_iter:
-                if not put(to_device(batch)):
+            it = iter(host_iter)
+            while True:
+                with span("prefetch.batch"):
+                    with span("prefetch.read"):
+                        batch = next(it, end)
+                    if batch is end:
+                        break
+                    item = to_device(batch)
+                if not put(item):
                     return
         except BaseException as e:  # handed to the consumer, which raises it
             error.append(e)
@@ -234,17 +254,18 @@ def device_prefetch(
     t.start()
     try:
         while True:
-            item = q.get()
-            if item is end:
-                if error:
-                    raise error[0]
-                break
-            out, ready = item
-            if ready is not None:
-                cur = torch.cuda.current_stream(dev)
-                cur.wait_event(ready)
-                for v in out.values():
-                    v.record_stream(cur)
+            with span("prefetch.wait"):
+                item = q.get()
+                if item is end:
+                    if error:
+                        raise error[0]
+                    break
+                out, ready = item
+                if ready is not None:
+                    cur = torch.cuda.current_stream(dev)
+                    cur.wait_event(ready)
+                    for v in out.values():
+                        v.record_stream(cur)
             yield out
     finally:
         closed.set()

@@ -37,6 +37,12 @@
   ``int8_layers`` (default ``quant.default_int8_layers(arch)``).
 * chunking, and power-of-two buckets for small N with the last row (signal
   and demo vector) repeated as padding (inference.py:289-319)
+* under a ``torch.profiler`` session a call records its spans
+  (``utils/profiling.py``): the root ``predictor.call`` (``rows``, the real
+  ones), and a chunk's ``predictor.prepare`` (bucketing and padding;
+  ``pad_rows``), ``predictor.h2d`` (the host->device copy; ``bytes``), the
+  engine branch ``predictor.kernel`` / ``.framework`` / ``.int8`` (``rows``
+  launched) and ``predictor.d2h`` (the probabilities' read; ``bytes``)
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from ptbxl_torch.ops.kernels.fused_ecgcnn import (
 from ptbxl_torch.ops.preprocess import zscore_per_lead_batch, zscore_per_lead_batch_onepass
 from ptbxl_torch.ops.quant import make_quantized_forward, resolve_qparams, split_meta, to_device
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
+from ptbxl_torch.utils.profiling import span
 
 _MAX_BATCH_ENV = os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH")
 KERNEL_MAX_BATCH = int(_MAX_BATCH_ENV or 1024)  # 'highest': the crossover against cuDNN f32
@@ -191,15 +198,19 @@ class Predictor:
     @torch.no_grad()
     def _forward(self, x: torch.Tensor, d: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One chunk on the device: x [B, T, 12] (+ d [B, 5] for multimodal) -> probs."""
+        rows = x.shape[0]
         if self._quant is not None:
-            return self._quant[0][1](x, d)
-        if self._use_kernel(x.shape[0]):
-            if self.arch == "multimodal":
-                return fused_multimodal_probs(x, d, self._folded, normalize=self.normalize,
-                                              weights=self._weights)
-            return fused_ecgcnn_probs(x, self._folded, normalize=self.normalize,
-                                      weights=self._weights)
-        return self._framework(self.model, x, d)
+            with span("predictor.int8", rows=rows):
+                return self._quant[0][1](x, d)
+        if self._use_kernel(rows):
+            with span("predictor.kernel", rows=rows):
+                if self.arch == "multimodal":
+                    return fused_multimodal_probs(x, d, self._folded, normalize=self.normalize,
+                                                  weights=self._weights)
+                return fused_ecgcnn_probs(x, self._folded, normalize=self.normalize,
+                                          weights=self._weights)
+        with span("predictor.framework", rows=rows):
+            return self._framework(self.model, x, d)
 
     @torch.no_grad()
     def _forward_replicas(self, x: torch.Tensor, d: Optional[torch.Tensor] = None
@@ -209,9 +220,15 @@ class Predictor:
         n = len(self._replicas)
         xs = x.chunk(n)
         ds = d.chunk(n) if d is not None else [None] * n
-        outs = [run(xi.to(dev), None if di is None else di.to(dev))
-                for (dev, run), xi, di in zip(self._replicas, xs, ds)]
-        return torch.cat([o.cpu() for o in outs])
+        branch = "predictor.int8" if self._quant is not None else "predictor.framework"
+        outs = []
+        for (dev, run), xi, di in zip(self._replicas, xs, ds):
+            with span("predictor.h2d", bytes=xi.nbytes + (0 if di is None else di.nbytes)):
+                xi, di = xi.to(dev), None if di is None else di.to(dev)
+            with span(branch, rows=xi.shape[0]):
+                outs.append(run(xi, di))
+        with span("predictor.d2h", bytes=sum(o.nbytes for o in outs)):
+            return torch.cat([o.cpu() for o in outs])
 
     def __call__(self, signals, demo=None) -> np.ndarray:
         """signals: [N, 12, T] or [N, T, 12] raw (+ demo [N, 5] for multimodal)
@@ -236,29 +253,34 @@ class Predictor:
         n_dev = len(self._replicas) if self._replicas else 1
         outs = []
         cs = self.chunk_size
-        for i0 in range(0, n, cs):
-            chunk = x[i0:i0 + cs]
-            real = chunk.shape[0]
-            if real < cs and n > cs:
-                target = cs
-            elif real < cs:
-                # bucket small one-shot batches to the next power of two, as
-                # the JAX Predictor does (pad rows are dropped below)
-                target = 1 << (real - 1).bit_length() if real > 1 else 1
-            else:
-                target = real
-            if target % n_dev:  # the replicas take equal row blocks
-                target += n_dev - target % n_dev
-            args = [chunk, demo[i0:i0 + cs]] if self.arch == "multimodal" else [chunk]
-            if real < target:
-                args = [np.concatenate([a, np.repeat(a[-1:], target - real, axis=0)])
-                        for a in args]
-            args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
-            if self._replicas:
-                probs = self._forward_replicas(*args)
-            else:
-                probs = self._forward(*[a.to(self.device) for a in args])
-            outs.append(probs[:real].cpu().numpy())
+        with span("predictor.call", rows=n):
+            for i0 in range(0, n, cs):
+                chunk = x[i0:i0 + cs]
+                real = chunk.shape[0]
+                if real < cs and n > cs:
+                    target = cs
+                elif real < cs:
+                    # bucket small one-shot batches to the next power of two, as
+                    # the JAX Predictor does (pad rows are dropped below)
+                    target = 1 << (real - 1).bit_length() if real > 1 else 1
+                else:
+                    target = real
+                if target % n_dev:  # the replicas take equal row blocks
+                    target += n_dev - target % n_dev
+                with span("predictor.prepare", pad_rows=target - real):
+                    args = [chunk, demo[i0:i0 + cs]] if self.arch == "multimodal" else [chunk]
+                    if real < target:
+                        args = [np.concatenate([a, np.repeat(a[-1:], target - real, axis=0)])
+                                for a in args]
+                    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+                if self._replicas:  # copies, engines and the read are the replicas' spans
+                    outs.append(self._forward_replicas(*args)[:real].numpy())
+                    continue
+                with span("predictor.h2d", bytes=sum(a.nbytes for a in args)):
+                    args = [a.to(self.device) for a in args]
+                probs = self._forward(*args)[:real]
+                with span("predictor.d2h", bytes=probs.nbytes):
+                    outs.append(probs.cpu().numpy())
         return np.concatenate(outs, axis=0)
 
 

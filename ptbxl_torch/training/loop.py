@@ -19,9 +19,14 @@
   loop_demo.py:40-43).
 * ``train_one_epoch`` reads each step's loss one step late, so the host
   queues the next step before it waits for the card; under
-  ``PTBXL_TORCH_PERF=1`` it reads every step's loss at once (the read waits
-  for the card, so the timer measures the step, not its launch) and prints
-  ``StepTimer.report("train")`` (loop.py:126-159).
+  ``PTBXL_TORCH_PERF=1`` it runs the same loop and times it from the first
+  step to the last loss read (one wait for the card an epoch, not one a
+  step), then prints ``StepTimer.report("train")`` (loop.py:126-159).
+* under a ``torch.profiler`` session each step records its spans
+  (``utils/profiling.py``): the root ``train.step`` (``rows``, the batch)
+  with ``train.forward`` (z-score, logits, loss), ``train.backward`` and
+  ``train.optimizer`` (``zero_grad``, and AdamW's step), and the epoch loop
+  a ``train.settle`` a loss read.
 * ``check_numerics=True`` (the trainer's ``PTBXL_TORCH_CHECK_NUMERICS``)
   raises ``FloatingPointError`` on a non-finite loss or gradient after the
   backward and before the optimizer step, so the bad update is never
@@ -51,7 +56,7 @@ from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
 from ptbxl_torch.training.metrics import compute_metrics
 from ptbxl_torch.training.train_state import TrainState
 from ptbxl_torch.utils.device import deterministic_algorithms
-from ptbxl_torch.utils.profiling import StepTimer, perf_enabled
+from ptbxl_torch.utils.profiling import StepTimer, perf_enabled, span
 
 Batch = Dict[str, object]
 
@@ -104,27 +109,32 @@ def make_train_step(multimodal: bool = False, normalize: str = "per_lead", mesh=
     """
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
-        model = state.model
-        b = _on(batch if mesh is None else mesh.local(batch), _device_of(model))
-        model.train()
-        with precision_scope(model.precision), deterministic_algorithms():
-            logits = _logits(model, b, multimodal, normalize)
-            mask = b["mask"]
-            n_real = torch.sum(mask)
-            if mesh is not None:
-                dist.all_reduce(n_real, group=mesh.data_group)
-            loss = torch.sum(per_sample_bce(logits, b["y"]) * mask) / n_real
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            if mesh is not None:
-                loss = mesh.all_reduce_grads(model, loss)
-            if check_numerics:
-                check_finite(model, loss, state.step)
-            state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
-        state.step += 1
-        return state, loss.detach()
+        with span("train.step", rows=len(batch["mask"])):
+            model = state.model
+            b = _on(batch if mesh is None else mesh.local(batch), _device_of(model))
+            model.train()
+            with precision_scope(model.precision), deterministic_algorithms():
+                with span("train.forward"):
+                    logits = _logits(model, b, multimodal, normalize)
+                    mask = b["mask"]
+                    n_real = torch.sum(mask)
+                    if mesh is not None:
+                        dist.all_reduce(n_real, group=mesh.data_group)
+                    loss = torch.sum(per_sample_bce(logits, b["y"]) * mask) / n_real
+                with span("train.optimizer"):
+                    state.optimizer.zero_grad(set_to_none=True)
+                with span("train.backward"):
+                    loss.backward()
+                    if mesh is not None:
+                        loss = mesh.all_reduce_grads(model, loss)
+                if check_numerics:
+                    check_finite(model, loss, state.step)
+                with span("train.optimizer"):
+                    state.optimizer.step()
+            if state.scheduler is not None:
+                state.scheduler.step()
+            state.step += 1
+            return state, loss.detach()
 
     return step
 
@@ -177,11 +187,14 @@ def train_one_epoch(
     timer = StepTimer() if perf_enabled() else None
     total = 0.0
     weight = 0.0
+    records = 0.0
     pending = None  # (loss, n_real) of the previous step, read after the next is queued
 
     def settle(item):
-        nonlocal total, weight
-        loss, n_real = float(item[0]), float(item[1])
+        nonlocal total, weight, records
+        with span("train.settle"):
+            loss, n_real = float(item[0]), float(item[1])  # waits for that step
+        records += n_real
         if loss_mode == "per_sample":
             total += loss * n_real
             weight += n_real
@@ -191,19 +204,16 @@ def train_one_epoch(
 
     for batch in _maybe_tqdm(batches, desc):
         n_real = _n_real(batch["mask"])
-        if timer:  # timer mode: wait for every step, so the timer measures it
+        if timer and pending is None:  # the epoch's first step
             timer.start()
         state, loss = train_step(state, batch)
-        if timer:
-            settle((loss, n_real))  # float() waits for the step
-            timer.stop(float(n_real))
-            continue
         if pending is not None:
             settle(pending)
         pending = (loss, n_real)
     if pending is not None:
         settle(pending)
     if timer:
+        timer.stop(records)  # after the last read: the epoch's steps have run
         print(timer.report("train"))
     return state, total / max(1.0, weight)
 

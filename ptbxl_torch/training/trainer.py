@@ -32,7 +32,8 @@ epoch through a ``SummaryWriter`` under ``<dir>/<run_name>`` (a ``[WARN]``
 line when TensorBoard is not installed); ``PTBXL_TORCH_CHECK_NUMERICS=1``
 raises ``FloatingPointError`` on the first non-finite loss or gradient,
 before its update; ``PTBXL_TORCH_PERF=1`` prints each epoch's step timer
-(``training/loop.py``).
+(``training/loop.py``: the epoch's records over the time from its first step
+to its last loss read; it waits for the card once an epoch, not each step).
 """
 
 from __future__ import annotations
