@@ -37,18 +37,33 @@
   ``int8_layers`` (default ``quant.default_int8_layers(arch)``).
 * chunking, and power-of-two buckets for small N with the last row (signal
   and demo vector) repeated as padding (inference.py:289-319)
+* on one GPU the chunks go through a staging ring of two slots (pinned host
+  buffers and their device twins, allocated at the first call and again
+  when the record shape changes or a call needs more rows): the host copies
+  chunk i+1's rows into a free slot and enqueues its copy to the device on a
+  side stream while chunk i's engine runs; the compute stream (the caller's
+  current stream) waits for the copy by an event, and the probabilities are
+  read back once, at the end of the call.  Calls on one Predictor take
+  turns (a lock).  On the CPU and on the replicas every chunk is padded and
+  handed over as it comes.
 * under a ``torch.profiler`` session a call records its spans
   (``utils/profiling.py``): the root ``predictor.call`` (``rows``, the real
-  ones), and a chunk's ``predictor.prepare`` (bucketing and padding;
-  ``pad_rows``), ``predictor.h2d`` (the host->device copy; ``bytes``), the
-  engine branch ``predictor.kernel`` / ``.framework`` / ``.int8`` (``rows``
-  launched) and ``predictor.d2h`` (the probabilities' read; ``bytes``)
+  ones), a chunk's ``predictor.prepare`` (``pad_rows``; bucketing and
+  padding, on a GPU the wait for a free slot), on a GPU ``predictor.stage``
+  (the rows and pad rows into the slot's pinned buffers; ``bytes``),
+  ``predictor.h2d`` (the host->device copy, on a GPU its enqueue; ``bytes``,
+  and on a GPU ``overlap``: 1 when an earlier chunk of the call has engine
+  work the host has not waited for), the engine branch ``predictor.kernel``
+  / ``.framework`` / ``.int8`` (``rows`` launched), and the call's one
+  ``predictor.d2h`` (the probabilities' read, which waits for the engines;
+  ``bytes``; a replica chunk's read is its own)
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import threading
 from functools import partial
 from typing import List, Mapping, Optional, Sequence, Union
 
@@ -176,6 +191,9 @@ class Predictor:
             self._weights = prepare_weights(self._folded)  # the kernel's split f32 weights, once
         self._zscore = (zscore_per_lead_batch if precision == "highest"
                         else zscore_per_lead_batch_onepass)
+        self._lock = threading.Lock()  # a call holds the staging ring
+        self._ring: Optional[_Ring] = None
+        self._pipelined = self.device.type == "cuda" and self._replicas is None
 
     @classmethod
     def from_checkpoint(cls, ckpt_path: str, num_labels: int = 5, arch: str = "ecgcnn",
@@ -251,37 +269,130 @@ class Predictor:
             return np.empty((0, self._num_labels), np.float32)
 
         n_dev = len(self._replicas) if self._replicas else 1
-        outs = []
         cs = self.chunk_size
-        with span("predictor.call", rows=n):
-            for i0 in range(0, n, cs):
-                chunk = x[i0:i0 + cs]
-                real = chunk.shape[0]
-                if real < cs and n > cs:
-                    target = cs
-                elif real < cs:
-                    # bucket small one-shot batches to the next power of two, as
-                    # the JAX Predictor does (pad rows are dropped below)
-                    target = 1 << (real - 1).bit_length() if real > 1 else 1
-                else:
-                    target = real
-                if target % n_dev:  # the replicas take equal row blocks
-                    target += n_dev - target % n_dev
-                with span("predictor.prepare", pad_rows=target - real):
-                    args = [chunk, demo[i0:i0 + cs]] if self.arch == "multimodal" else [chunk]
-                    if real < target:
-                        args = [np.concatenate([a, np.repeat(a[-1:], target - real, axis=0)])
-                                for a in args]
-                    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
-                if self._replicas:  # copies, engines and the read are the replicas' spans
-                    outs.append(self._forward_replicas(*args)[:real].numpy())
+        plan = []  # (first row, real rows, launched rows) a chunk
+        for i0 in range(0, n, cs):
+            real = min(cs, n - i0)
+            if real < cs and n > cs:
+                target = cs
+            elif real < cs:
+                # bucket small one-shot batches to the next power of two, as
+                # the JAX Predictor does (pad rows are dropped below)
+                target = 1 << (real - 1).bit_length() if real > 1 else 1
+            else:
+                target = real
+            if target % n_dev:  # the replicas take equal row blocks
+                target += n_dev - target % n_dev
+            plan.append((i0, real, target))
+        arrays = [x, demo] if self.arch == "multimodal" else [x]
+        with self._lock, span("predictor.call", rows=n):
+            if self._replicas:  # copies, engines and the reads are the replicas' spans
+                outs = [self._forward_replicas(*_padded([a[i0:i0 + real] for a in arrays],
+                                                        target))[:real].numpy()
+                        for i0, real, target in plan]
+                return np.concatenate(outs)
+            ring = None
+            if self._pipelined:
+                ring = self._ring = _Ring.fit(self._ring, max(t for _, _, t in plan),
+                                              [a.shape[1:] for a in arrays], self.device)
+            outs = []  # each chunk's probabilities, left on the device until the end
+            for k, (i0, real, target) in enumerate(plan):
+                parts = [a[i0:i0 + real] for a in arrays]
+                if ring is None:
+                    args = _padded(parts, target)
+                    with span("predictor.h2d", bytes=sum(a.nbytes for a in args)):
+                        args = [a.to(self.device) for a in args]
+                    outs.append(self._forward(*args)[:real])
                     continue
-                with span("predictor.h2d", bytes=sum(a.nbytes for a in args)):
-                    args = [a.to(self.device) for a in args]
-                probs = self._forward(*args)[:real]
-                with span("predictor.d2h", bytes=probs.nbytes):
-                    outs.append(probs.cpu().numpy())
-        return np.concatenate(outs, axis=0)
+                # the host waits for no engine inside a call, so every chunk
+                # after the first is copied while earlier engines may run
+                args = ring.stage(k, parts, target, overlap=bool(outs))
+                outs.append(self._forward(*args)[:real])
+                ring.release(k)
+            with span("predictor.d2h", bytes=sum(o.nbytes for o in outs)):
+                return torch.cat(outs).cpu().numpy()
+
+
+def _padded(parts: Sequence[np.ndarray], target: int) -> List[torch.Tensor]:
+    """A chunk's host arrays as tensors of ``target`` rows, the last real row
+    (signal and demo vector) repeated as padding."""
+    real = parts[0].shape[0]
+    with span("predictor.prepare", pad_rows=target - real):
+        if real < target:
+            parts = [np.concatenate([a, np.repeat(a[-1:], target - real, axis=0)])
+                     for a in parts]
+        return [_as_tensor(np.ascontiguousarray(a)) for a in parts]
+
+
+def _as_tensor(a: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor over its memory.  ``from_numpy`` takes no
+    negative stride, which a reversed view keeps even where numpy counts it
+    contiguous (one row)."""
+    return torch.from_numpy(a if min(a.strides, default=0) >= 0 else a.copy())
+
+
+class _Ring:
+    """``Predictor``'s staging ring on a GPU: two slots, each a pinned host
+    buffer an input ([rows, T, 12], and [rows, 5] for the multimodal
+    demographics) with a device buffer of the same shape, and two events:
+    ``copied``, recorded on the side stream after the copy into the device
+    buffers, and ``used``, recorded on the compute stream after the engine
+    that read them.  Chunk k takes slot k % 2.  The host rewrites a slot's
+    pinned buffers only after its ``copied``, and the side stream rewrites its
+    device buffers only after its ``used``: events only, never a wait for the
+    whole device."""
+
+    def __init__(self, rows: int, shapes: List[tuple], device: torch.device,
+                 side: "torch.cuda.Stream"):
+        self.rows, self.shapes, self.device, self.side = rows, shapes, device, side
+        pin = device.type == "cuda"
+        self.slots = []
+        for _ in range(2):
+            host = [torch.empty((rows, *sh), dtype=torch.float32, pin_memory=pin)
+                    for sh in shapes]
+            dev = [torch.empty((rows, *sh), dtype=torch.float32, device=device)
+                   for sh in shapes]
+            self.slots.append((host, dev, torch.cuda.Event(), torch.cuda.Event()))
+
+    @classmethod
+    def fit(cls, ring: Optional["_Ring"], rows: int, shapes: List[tuple],
+            device: torch.device) -> "_Ring":
+        """``ring`` if its slots hold ``rows`` rows of ``shapes``, else a new
+        ring of that size on ``ring``'s side stream (a new one for the first)."""
+        if ring is None:
+            return cls(rows, shapes, device, torch.cuda.Stream(device))
+        if ring.rows >= rows and ring.shapes == shapes:
+            return ring
+        ring.side.synchronize()  # no copy into the old buffers is left when they are freed
+        return cls(rows, shapes, device, ring.side)
+
+    def stage(self, k: int, parts: Sequence[np.ndarray], target: int,
+              overlap: bool) -> List[torch.Tensor]:
+        """Chunk ``k``'s rows (host arrays of ``real`` rows) into its slot's
+        pinned buffers, padded to ``target`` rows with the last real row, and
+        their copy to the device enqueued on the side stream; the compute
+        stream waits for it.  Returns the device views the engine reads."""
+        host, dev, copied, used = self.slots[k % 2]
+        real = parts[0].shape[0]
+        with span("predictor.prepare", pad_rows=target - real):
+            copied.synchronize()
+        nbytes = sum(h[:target].nbytes for h in host)
+        with span("predictor.stage", bytes=nbytes):
+            for h, a in zip(host, parts):
+                h[:real].copy_(_as_tensor(a))  # torch's threads share a large copy
+                h[real:target] = h[real - 1]
+        with span("predictor.h2d", bytes=nbytes, overlap=int(overlap)):
+            self.side.wait_event(used)
+            with torch.cuda.stream(self.side):
+                for d, h in zip(dev, host):
+                    d[:target].copy_(h[:target], non_blocking=True)
+            copied.record(self.side)
+            torch.cuda.current_stream(self.device).wait_event(copied)
+        return [d[:target] for d in dev]
+
+    def release(self, k: int) -> None:
+        """Mark chunk ``k``'s engine as the last reader of its slot."""
+        self.slots[k % 2][3].record(torch.cuda.current_stream(self.device))
 
 
 def _device_list(device) -> List[torch.device]:
