@@ -7,8 +7,17 @@
                                    arch="multimodal")
     probs = mm(signals, demo=demo_vectors)      # + [N, 5] demographics
 
+    vit = Predictor(state_dict, arch="st_mem", precision="default")
+    probs = vit(signals)                        # ST-MEM's ViT-B/75 in bf16
+
 * accepts reference-layout ``[N, 12, T]`` or channels-last ``[N, T, 12]`` raw
   signals; the per-lead z-score runs on the device
+* ``arch='st_mem'`` serves ST-MEM's ViT encoder (``models/st_mem.py``) on the
+  framework engine alone (``'auto'`` resolves to it; ``'kernel'`` and
+  ``precision='int8'`` raise): its front end (resampling to 250 Hz, the crop
+  to 9 s, then the z-score) is the model's own, ``precision='default'`` runs it
+  in bf16 with the attention through ``F.scaled_dot_product_attention``;
+  its sizes are read from ``state_dict``'s shapes, its heads 64 wide
 * ``engine='kernel'`` runs the hand-written fused forward (K2, or K3 for
   ``arch='multimodal'``; f32 compute, its conv blocks in 3xTF32 on the tensor
   cores), ``engine='framework'`` the ``nn.Module`` on cuDNN (the JAX
@@ -74,6 +83,7 @@ from ptbxl_torch.models.ecg_cnn import ECGCNN
 from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
 from ptbxl_torch.models.factory import merge_state
 from ptbxl_torch.models.params_io import load_checkpoint
+from ptbxl_torch.models.st_mem import STMEM, widths
 from ptbxl_torch.ops.kernels.fused_ecgcnn import (
     fold_bn_into_conv,
     fold_multimodal,
@@ -90,14 +100,14 @@ _MAX_BATCH_ENV = os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH")
 KERNEL_MAX_BATCH = int(_MAX_BATCH_ENV or 1024)  # 'highest': the crossover against cuDNN f32
 KERNEL_MAX_BATCH_BF16 = int(_MAX_BATCH_ENV or 16)  # 'default': the crossover against cuDNN bf16
 
-_ARCHS = ("ecgcnn", "multimodal")
+_ARCHS = ("ecgcnn", "multimodal", "st_mem")
 _ENGINES = ("auto", "framework", "kernel")
 ENGINE_ALIASES = {"xla": "framework", "pallas": "kernel"}  # the JAX Predictor's names
 _PRECISIONS = ("highest", "default", "int8")
 
 
 class Predictor:
-    """Batched baseline / AF ECGCNN or FiLM multimodal inference on one device."""
+    """Batched baseline / AF ECGCNN, FiLM multimodal or ST-MEM inference on one device."""
 
     def __init__(
         self,
@@ -129,6 +139,13 @@ class Predictor:
         if engine not in _ENGINES:
             raise ValueError(
                 f"engine must be one of {_ENGINES + tuple(ENGINE_ALIASES)}, got {engine!r}")
+        if arch == "st_mem":
+            # no kernel engine and no int8 path exist for the ViT encoder
+            if engine == "kernel" or precision == "int8":
+                raise ValueError("arch='st_mem' runs on the framework engine only, at "
+                                 "precision 'highest' or 'default' (engine='framework' or "
+                                 f"'auto'), not engine={engine!r}, precision={precision!r}")
+            engine = "framework"
         if precision == "int8":
             # an XLA-path feature in JAX (inference.py:101-106): the framework engine
             if engine == "kernel":
@@ -159,7 +176,12 @@ class Predictor:
 
         dtype = torch.float32 if precision == "highest" else torch.bfloat16
         model_precision = "default" if precision == "int8" else precision
-        if arch == "multimodal":
+        if arch == "st_mem":
+            self.model = STMEM(**{**widths(state_dict), "num_labels": num_labels},
+                               precision=model_precision, dtype=dtype)
+            # resolved once: the model runs its own front end before the z-score
+            self._framework = self._framework_st_mem
+        elif arch == "multimodal":
             self.model = ECGMultimodal(feat_dim=feat_dim, num_labels=num_labels,
                                        demo_hidden_dim=demo_hidden_dim,
                                        precision=model_precision, dtype=dtype)
@@ -212,6 +234,10 @@ class Predictor:
         h = self._zscore(x) if self.normalize else x
         logits = model(h, d) if self.arch == "multimodal" else model(h)
         return torch.sigmoid(logits.float())
+
+    def _framework_st_mem(self, model: torch.nn.Module, x: torch.Tensor,
+                          d: Optional[torch.Tensor]) -> torch.Tensor:
+        return torch.sigmoid(model(x, self.normalize).float())
 
     @torch.no_grad()
     def _forward(self, x: torch.Tensor, d: Optional[torch.Tensor] = None) -> torch.Tensor:

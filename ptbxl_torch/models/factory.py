@@ -9,6 +9,7 @@ import torch
 from ptbxl_torch.models.ecg_cnn import ECGCNN
 from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
 from ptbxl_torch.models.params_io import StateDict, load_checkpoint
+from ptbxl_torch.models.st_mem import STMEM
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -60,6 +61,30 @@ def build_multimodal(
                           demo_hidden_dim=demo_hidden_dim, in_leads=in_leads,
                           precision=precision, dtype=dtype, torch_init=torch_init,
                           generator=gen)
+    return model.to(dev).eval()
+
+
+def build_st_mem(
+    num_labels: int = 5,
+    width: int = 768,
+    depth: int = 12,
+    heads: int = 12,
+    mlp: int = 3072,
+    patch: int = 75,
+    samples: int = 2250,
+    leads: int = 12,
+    seed: int = 42,
+    precision: Optional[str] = "highest",
+    dtype: torch.dtype = torch.float32,
+    device: DeviceLike = None,
+) -> STMEM:
+    """A freshly initialised ST-MEM ViT encoder and head (ViT-B/75 at the
+    defaults) in eval mode, weights drawn from ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    model = STMEM(num_labels=num_labels, width=width, depth=depth, heads=heads, mlp=mlp,
+                  patch=patch, samples=samples, leads=leads, precision=precision, dtype=dtype,
+                  generator=gen)
     return model.to(dev).eval()
 
 
