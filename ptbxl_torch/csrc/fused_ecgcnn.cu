@@ -17,47 +17,66 @@
 // tf32(a), small = tf32(a - big), and a*b is taken as small*big + big*small +
 // big*big with f32 sums; the dropped small*small and the rounding of small
 // leave about 2^-22 of |a*b|.  Three TF32 products per f32 product at 495
-// TFLOP/s take 3.52 ms at B=512.  The bytes (the input read once, the logits
-// written; ~1.3 GB of intermediates at B=512, ~0.4 ms) are below either.
+// TFLOP/s take 3.51 ms at B=512 (the blocks 0.18 / 0.48 / 0.95 / 1.91 ms).
+// The bytes (the input read once, the logits written; ~1.3 GB of
+// intermediates at B=512, ~0.4 ms) are below either.
 //
 // The TPU kernel keeps a whole record (~2 MB) on chip; an H100 block has at
 // most 227 KB of shared memory and one f32 [5000, 12] input alone is 240 KB.
 // So the forward is a short sequence of launches on the caller's stream, with
 // intermediates in device memory:
-//   ptbxl_conv_block_tf32x3 (once per block): an implicit GEMM in the
-//     shape of K4's (hybrid_wgmma.cu).  A block owns BM conv rows x BN
-//     output channels of one record.  It stages its f32 input rows with
-//     their 14-row halo once in shared memory, zero outside [0, T) and
-//     for padded channels, so SAME padding pads the *normalized* signal;
-//     block 0 applies the z-score while staging.  Row m of the GEMM's A
-//     at reduction column k*CinP + c is tile row m + k at channel c, so
-//     each 8-wide reduction slice is a plain tile of shifted rows and no
-//     im2col is written.  The weights are split once on the host
-//     (fused_ecgcnn.py prepare_weights) into [2, Cout, 15*CinP] (big,
-//     small; channels zero-padded to CinP, a multiple of 8) and stream
-//     through a ring of cp.async stages (64 reduction columns in a ring
-//     of two; 32 in a ring of three for Cout = 32).  Both operands reach
-//     registers by ldmatrix: an 8 x 4 tile of f32 is an 8 x 8 tile of
-//     b16, and the fragment ldmatrix gives of it is mma.m16n8k8's tf32 A
-//     (row-major input) and B (the [Cout, K] weights) fragment, so no
-//     transpose is needed.  The input is split in registers after each
-//     load; each product is three mma.sync m16n8k8 tf32 -> f32, the
-//     small terms first, into accumulators that restart at every stage
-//     and are added to the running sums in f32 (the tensor cores' own
-//     sums truncate; see the kernel).  Two neighbouring conv rows of an
-//     accumulator tile sit in lanes 4 apart, so bias, ReLU and the floor
-//     pool are a shuffle in the epilogue and only [T/2, Cout] is
-//     written.  Tiles (conv rows x channels, warps): 128 x 128 (8 warps
-//     of 32 x 64) for Cout % 128 == 0, 256 x 64 (8 of 64 x 32) for
-//     Cout % 64 == 0, 256 x 32 (8 of 32 x 32) otherwise.  At the widest block
-//     (CinP = 128) 128 x 128 takes 142 x 132 x 4 B of input and 2 x 2 x
-//     128 x 68 x 4 B of weights, 209 KB of the 227 KB a block may have;
-//     256 x 128 would not fit.  Shared memory thus allows one such block
-//     an SM (8 warps), and the mma.sync issue rate, not the bytes,
-//     bounds the block.  A launch whose grid would give fewer than two
-//     blocks an SM takes 64 x 64 tiles (4 warps), and below that 32 x 32
-//     (2 warps), so a B=1 chunk still fills the card (block 3: 160
-//     blocks).
+//   ptbxl_conv_block_tf32x3 (once per block): an implicit GEMM on Hopper's
+//     warpgroup MMA (wgmma.mma_async m64nNk8 .f32.tf32.tf32), K4's design
+//     (hybrid_wgmma.cu) carried to 3xTF32.  A tile is BM conv rows x BN
+//     output channels of one record.  Its consumer warpgroups stage the
+//     tile's f32 input rows with their 14-row halo once in shared memory by
+//     cp.async, zero outside [0, T) and for padded channels, so SAME padding
+//     pads the *normalized* signal; block 0 z-scores the landed rows in
+//     place.  Row m of the GEMM's A at reduction column tap*CinP + c is tile
+//     row m + tap at channel c, so each k8 step's A is a window of shifted
+//     rows, read by ldmatrix (an 8 x 4 tile of f32 is an 8 x 8 tile of b16,
+//     and the fragment ldmatrix gives of it is a warp's part of wgmma's
+//     m64k8 TF32 register A), split in registers into big and small, and fed
+//     as wgmma's register A: TF32 wgmma takes only K-major operands from
+//     shared memory, and register A writes no im2col.  The weights are the B
+//     operand, from shared memory: prepare_weights splits them once on the
+//     host into big and small planes, [k8 step][plane][Cout/8][K half][8][4]
+//     (wgmma's K-major core matrices without swizzle: 128 contiguous bytes,
+//     128 between the two K halves, 256 between 8-channel groups), so a slice
+//     of BN channels of one step's plane is one contiguous run.  A producer
+//     warp moves them by 1-D bulk copies (cp.async.bulk) onto mbarriers: the
+//     whole slice once for the CTA's life where it fits (block 0, 61 KB),
+//     else through a ring of stages of STEPS k8 steps, as deep as the shared
+//     memory left over holds (two to eight).  Each product is three wgmmas,
+//     the small terms first (small*big, big*small, big*big), into sums that
+//     restart at every stage (scale-d = 0 on its first product) and are added
+//     to the running sums in f32: the tensor cores' own sums truncate, so
+//     their error would compound over a whole reduction (up to 720 chained
+//     products); restarted every stage (at most 64 reduction columns), each
+//     block stays within chip_smoke.py's gate (2^-18 of the block's |x| conv
+//     |w|).  A stage's products are issued, waited for
+//     and its slot released, and the two consumer warpgroups take turns on
+//     the tensor cores; the waits at each stage's end are what the deep
+//     stages amortise.  CTAs are persistent: each takes tiles grid-stride
+//     and, when it takes more than one, fetches the next tile's rows into a
+//     second staged tile while it multiplies this one (when shared memory
+//     holds two beside a ring of two).  Bias, ReLU and the floor pool happen
+//     in the epilogue as a shuffle (the two conv rows of a window sit in
+//     lanes 4 apart), and only [T/2, Cout] is written.
+//     Tiles (PTBXL_TF32_TILES): a consumer warpgroup keeps its stage sums
+//     and running sums in registers, RM x BN / 2 floats a thread each,
+//     so at most m64 x n128 a warpgroup; two warpgroups and a producer
+//     warpgroup make 384 threads, which get 168 registers each unless the
+//     producer hands its own to the consumers (setmaxnreg: 40 and 232).
+//     Measured on the H100 (PERF.md §6): an n128 wgmma with register A
+//     keeps the tensor cores far busier than n64 or n32 ones, and the stage
+//     waits cost less the more k8 steps a stage holds, so blocks 2 and 3 take
+//     m128 x n128 tiles of eight-step stages (block 3 in two channel
+//     slices), block 1 (Cout 64) m256 x n64, block 0 (Cout 32) m256 x n32;
+//     block 0 stays the least efficient (n32, and CinP 16 for 12 leads).  A
+//     grid without a tile for every SM takes m64 x n32 tiles of one consumer
+//     warpgroup, two CTAs an SM, so a B=1 chunk still spreads over the card
+//     (block 3: 80 tiles).
 //   ptbxl_tail: one block per record: mean over T, proj, head.
 // K3 runs the same backbone launches (the folded backbone is the same
 // function with weights in the same layout) and ends in ptbxl_mm_tail: one
@@ -76,8 +95,7 @@
 // thread) serves only ptbxl_conv_block_valid: on a pre-padded input, the
 // "direct" mode of the P3 layer probe (tools/probe_layer_perf.py
 // make_pallas_layer, :52).
-// Later work: wgmma with TF32 operands fed by TMA (mma.sync does not reach the
-// tensor cores' full rate), and fusing blocks so intermediates stay on chip.
+// Later work: fusing blocks so intermediates stay on chip.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,7 +110,10 @@ __device__ __forceinline__ float rnd_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// -- the f32 conv block: 3xTF32 on the tensor cores --------------------------------
+// -- the f32 conv block: 3xTF32 on wgmma -----------------------------------------------
+
+constexpr int kMaxStages = 8;   // weight ring slots, as many as shared memory holds
+constexpr int kXSkew = 4;       // floats of padding a staged row (ldmatrix bank spread)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -106,13 +127,133 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
                : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+// 16 (or 4) bytes global -> shared, or zeros when !valid (no global read then)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// -- mbarriers and the bulk copy
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// wait for the completion of the phase with this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+template <int kThreads>  // the consumer warpgroups alone (the producer warp never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// -- wgmma
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep a register live and unmoved across this point (an async product reads or writes it)
+__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
+
+// B descriptor: K-major, no swizzle; start, leading (K) and stride (N) byte offsets
+__device__ __forceinline__ uint64_t b_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d[N/2] = (kAcc ? d : 0) + A (64 x 8 tf32, registers: this warp's 16 rows) * B
+// (8 x N tf32, shared, K-major)
+template <int kAcc>
+struct WgmmaTf32 {
+  static __device__ __forceinline__ void n32(float* d, const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(kAcc));
+  }
+  static __device__ __forceinline__ void n64(float* d, const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(kAcc));
+  }
+  static __device__ __forceinline__ void n128(float* d, const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(kAcc));
+  }
+};
+
+template <int N, int kAcc>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (N == 32) WgmmaTf32<kAcc>::n32(d, a, desc);
+  else if constexpr (N == 64) WgmmaTf32<kAcc>::n64(d, a, desc);
+  else WgmmaTf32<kAcc>::n128(d, a, desc);
 }
 
 // f32 bits -> TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from
@@ -127,192 +268,264 @@ __device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& big, uint32_t& 
   small = tf32_rna(__float_as_uint(__uint_as_float(a) - __uint_as_float(big)));
 }
 
-// d += a (16x8, row) * b (8x8, col): tf32 operands, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// One launch's shapes and its shared-memory plan (Tf32Tile::plan)
+struct ConvArgs {
+  const float* x;      // [B, T, Cin] f32
+  const float* stats;  // [B, Cin, 2] (mean, std+eps), or null: no z-score
+  const float* w;      // [15*CinP/8, 2, 8*Cout] (tf32x3_weight)
+  const float* bias;   // [Cout]
+  float* y;            // [B, T/2, Cout]
+  int T, Cin, CinP, Cout;
+  int row_tiles, n_tiles;
+  int stages;    // ring slots (resident: every stage of the slice)
+  int resident;  // the slice's weights stay for the CTA's life (Cout == BN)
+  int nxs;       // staged input tiles: 2 when a CTA takes more than one tile
+  int vec;       // rows land by 16-byte copies (Cin % 4 == 0, x 16-byte aligned)
+};
 
-// weight stage j (reduction columns [j*KC, j*KC + KC) of output channels
-// [n0, n0 + BN), big rows then small rows) into ring slot j % kStages; rows
-// KC + 4 floats apart (16-B rows, an odd count of 16-B units: ldmatrix without
-// bank conflicts)
-template <int BN, int kKC, int kStages, int kThreads>
-__device__ __forceinline__ void load_w_stage(float* ws, const float* __restrict__ w3, int j,
-                                             int ktot, long plane, int n0) {
-  constexpr int kWS = kKC + 4;
-  constexpr int kG = kKC / 4;  // 16-B chunks a row
-  float* dst = ws + (j % kStages) * (2 * BN * kWS);
-  const int r0 = j * kKC;
-  for (int i = threadIdx.x; i < 2 * BN * kG; i += kThreads) {
-    const int row = i / kG, r = r0 + (i % kG) * 4;  // row = part * BN + n
-    if (r < ktot)  // the last stage may be short; its missing columns are never read
-      cp_async16(dst + row * kWS + (r - r0),
-                 w3 + (row / BN) * plane + (long)(n0 + row % BN) * ktot + r);
-  }
-}
+// A tile: WGS consumer warpgroups, each RM m64 tiles of BN channels, and a
+// producer warpgroup (one warp of it works); the weights stream STEPS k8 steps
+// (8 * STEPS reduction columns) a stage.  With two consumer warpgroups and one
+// CTA an SM the producer gives its registers to the consumers (setmaxnreg):
+// 384 threads would otherwise get 168 registers each.
+template <int BN, int RM, int WGS, int STEPS, int MINB>
+struct WgTile {
+  static constexpr int kBN = BN;
+  static constexpr int kConsumers = WGS * 128;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr bool kShiftRegs = WGS == 2 && MINB == 1;
+  static constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 64 K
+  static constexpr int kBM = WGS * 64 * RM;                     // conv rows a tile
+  static constexpr int kRows = kBM + kK - 1;                    // staged input rows
+  static constexpr int kNacc = BN / 2;                          // sums a thread, per m64 tile
+  static constexpr uint32_t kPlaneBytes = BN * 32;              // one plane of a k8 step
+  static constexpr uint32_t kStageBytes = STEPS * 2 * kPlaneBytes;
+  static_assert(BN == 32 || BN == 64 || BN == 128, "wgmma widths");
+  static_assert(RM * BN <= 128, "part and running sums: <= 128 floats a thread each");
+};
 
-// x [B, T, Cin] f32; conv row t in [0, 2*(T/2)) reads rows t + k - 7, zero
-// outside [0, T); stats [B, Cin, 2] (mean, std+eps) when kZscore; w3 [2, Cout,
-// 15*CinP] f32, TF32 big and small parts at column k*CinP + c, zero for
-// c >= Cin; bias [Cout]; y [B, T/2, Cout] = pool(relu(conv + bias)).  The
-// weights stream kKC reduction columns a stage through a ring of kStages.
-template <int kWarpsM, int kWarpsN, int kMT, int kNT, int kKC, int kStages, bool kZscore>
-__global__ void __launch_bounds__(kWarpsM * kWarpsN * 32)
-tf32x3_conv_block_kernel(const float* __restrict__ x, const float* __restrict__ stats,
-                         const float* __restrict__ w3, const float* __restrict__ bias,
-                         float* __restrict__ y, int T, int Cin, int CinP, int Cout,
-                         int row_tiles) {
-  constexpr int kThreads = kWarpsM * kWarpsN * 32;
-  constexpr int kBM = kWarpsM * kMT * 16;
-  constexpr int kBN = kWarpsN * kNT * 8;
-  constexpr int kRows = kBM + kK - 1;
-  constexpr int kWS = kKC + 4;
-  static_assert(kNT % 2 == 0, "one ldmatrix_x4 loads the B fragments of two n-tiles");
-  static_assert(kKC % 8 == 0 && kStages >= 2, "whole k-steps, a ring of at least two");
-  extern __shared__ __align__(16) float smem[];
-  const int xs_stride = CinP + 4;        // 16-B rows, an odd count of 16-B units
-  float* xs = smem;                      // [kRows][xs_stride]
-  float* ws = smem + kRows * xs_stride;  // kStages x 2 x [kBN][kWS]
-
-  const int rec = blockIdx.x / row_tiles;
-  const int t0 = (blockIdx.x % row_tiles) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int ktot = kK * CinP;
-  const int n_stages = (ktot + kKC - 1) / kKC;
-  const long plane = (long)Cout * ktot;
-
-  // the first stages' weights fly while the input is staged
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_stages) load_w_stage<kBN, kKC, kStages, kThreads>(ws, w3, s, ktot, plane, n0);
-    cp_async_commit();
-  }
-
-  // input tile: rows t0 - 7 .. t0 - 7 + kRows - 1, zero outside [0, T) and
-  // for channels >= Cin
-  const float* xr = x + (long)rec * T * Cin;
-  for (int i = threadIdx.x; i < kRows * CinP; i += kThreads) {
-    const int r = i / CinP, c = i % CinP;
-    const int t = t0 - kPad + r;
-    float v = 0.f;
-    if (t >= 0 && t < T && c < Cin) {
-      v = xr[(long)t * Cin + c];
-      if (kZscore) {
-        const float* st = stats + ((long)rec * Cin + c) * 2;
-        v = (v - st[0]) / st[1];
-      }
+// Tile `tile`'s input rows t0 - 7 + r (r < kRows) into the staged tile xs (row
+// stride CinP + kXSkew) by cp.async, zeros outside [0, T); channels >= Cin are
+// never written (zeroed once at the start)
+template <class S>
+__device__ __forceinline__ void issue_rows(const ConvArgs& a, int tile, float* xs, int tid) {
+  const int nsl = a.Cout / S::kBN;
+  const int rt = (tile / nsl) % a.row_tiles, rec = tile / (nsl * a.row_tiles);
+  const float* xr = a.x + (size_t)rec * a.T * a.Cin;
+  const int u0 = rt * S::kBM - kPad, xsr = a.CinP + kXSkew;
+  if (a.vec) {
+    const int c4s = a.Cin / 4;
+    for (int i = tid; i < S::kRows * c4s; i += S::kConsumers) {
+      const int r = i / c4s, c = (i - r * c4s) * 4, t = u0 + r;
+      const bool in = t >= 0 && t < a.T;
+      cp_async16_zfill(xs + r * xsr + c, xr + (size_t)(in ? t : 0) * a.Cin + c, in);
     }
-    xs[r * xs_stride + c] = v;
+  } else {
+    for (int i = tid; i < S::kRows * a.Cin; i += S::kConsumers) {
+      const int r = i / a.Cin, c = i - r * a.Cin, t = u0 + r;
+      const bool in = t >= 0 && t < a.T;
+      cp_async4_zfill(xs + r * xsr + c, xr + (size_t)(in ? t : 0) * a.Cin + c, in);
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm0 = (warp % kWarpsM) * (kMT * 16);
-  const int wn0 = (warp / kWarpsM) * (kNT * 8);
-  // ldmatrix rows: A's four tiles are rows 0-7 | 8-15 by columns 0-3 | 4-7
-  // (a0..a3); B's are n 0-7 by k 0-3 | 4-7, then n 8-15 likewise (b0, b1 of
-  // two n-tiles)
-  const int a_row = lane & 15, a_col = (lane >> 4) * 4;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 4;
+// y = pool(relu(conv_SAME(z(x), w) + bias)), see ConvArgs.  Persistent: CTA c
+// takes tiles c, c + grid, ... (tile = (record, row tile, channel slice), the
+// slice fastest); the producer warp streams each tile's weight stages through
+// the ring without a break, and the consumers fetch the next tile's rows
+// while they multiply this one's (nxs == 2).
+template <int BN, int RM, int WGS, int MINB, int STEPS>
+__global__ void __launch_bounds__(WgTile<BN, RM, WGS, STEPS, MINB>::kThreads, MINB)
+tf32x3_conv_block_kernel(const ConvArgs a) {
+  using S = WgTile<BN, RM, WGS, STEPS, MINB>;
+  constexpr int kSteps = STEPS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int xsr = a.CinP + kXSkew;
+  unsigned char* ring = smem;  // a.stages slots of kStageBytes: [step][plane][BN/8][2][8][4]
+  float* xs0 = reinterpret_cast<float*>(smem + (size_t)a.stages * S::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs0 + (size_t)a.nxs * S::kRows * xsr);
+  uint64_t* empty = full + a.stages;
+  const int nsl = a.Cout / BN;
+  const int n_stage = kK * a.CinP / 8 / kSteps;  // whole stages (the launcher checked)
+  const int tid = threadIdx.x;
 
-  // each stage sums into part, which starts from zero, and part is added to
-  // acc in f32: the tensor cores' own sums do not round to nearest, so their
-  // error compounds when one accumulator is chained over the whole reduction
-  // (up to 720 mma); restarted each stage, the block stays within
-  // chip_smoke.py's per-block gate (2^-18 of the block's |x| conv |w|)
-  float acc[kMT][kNT][4], part[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WGS);  // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int padc = a.CinP - a.Cin;  // padded channels: zero in every staged tile
+  for (int i = tid; i < a.nxs * S::kRows * padc; i += S::kThreads) {
+    const int r = i / padc;
+    xs0[r * xsr + a.Cin + (i - r * padc)] = 0.f;
+  }
+  __syncthreads();
 
-#pragma unroll 1
-  for (int j = 0; j < n_stages; ++j) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage j and the input tile are in; slot (j - 1) % kStages is free
-    if (j + kStages - 1 < n_stages)
-      load_w_stage<kBN, kKC, kStages, kThreads>(ws, w3, j + kStages - 1, ktot, plane, n0);
-    cp_async_commit();
-    const float* wbig = ws + (j % kStages) * (2 * kBN * kWS);
-    const float* wsmall = wbig + kBN * kWS;
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks) {
-      const int r = j * kKC + ks * 8;
-      if (r >= ktot) break;
-      const int tap = r / CinP, c0 = r - tap * CinP;  // an 8-wide slice never straddles taps
-      uint32_t bb[kNT][2], bs[kNT][2];
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        const int off = (wn0 + np * 16 + b_row) * kWS + ks * 8 + b_col;
-        uint32_t f[4];
-        ldmatrix_x4(f, wbig + off);
-        bb[2 * np][0] = f[0], bb[2 * np][1] = f[1];
-        bb[2 * np + 1][0] = f[2], bb[2 * np + 1][1] = f[3];
-        ldmatrix_x4(f, wsmall + off);
-        bs[2 * np][0] = f[0], bs[2 * np][1] = f[1];
-        bs[2 * np + 1][0] = f[2], bs[2 * np + 1][1] = f[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        uint32_t a[4], ab[4], as[4];
-        ldmatrix_x4(a, xs + (wm0 + mt * 16 + a_row + tap) * xs_stride + c0 + a_col);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          mma_tf32(part[mt][nt], as, bb[nt]);
-          mma_tf32(part[mt][nt], ab, bs[nt]);
-          mma_tf32(part[mt][nt], ab, bb[nt]);
+  if (tid >= S::kConsumers) {  // the producer warpgroup: its first warp streams the weights
+    if constexpr (S::kShiftRegs)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::kProducerRegs));
+    if (tid >= S::kConsumers + 32) return;
+    const int lane = tid & 31;
+    int g = 0;  // stages issued so far, over all of this CTA's tiles
+    const int last = a.resident ? blockIdx.x + 1 : a.n_tiles;
+    for (int tile = blockIdx.x; tile < last; tile += gridDim.x) {
+      const float* src = a.w + (size_t)(tile % nsl) * BN * 8;
+      for (int s = 0; s < n_stage; ++s, ++g) {
+        const int slot = a.resident ? s : g % a.stages;
+        if (!a.resident && g >= a.stages) mbar_wait(&empty[slot], ((g / a.stages) - 1) & 1);
+        if (lane == 0) mbar_expect_tx(&full[slot], S::kStageBytes);
+        __syncwarp();
+        if (lane < 2 * kSteps) {  // lane 2j + p: plane p of the stage's step j
+          const int j = lane >> 1, p = lane & 1;
+          bulk_load(ring + (size_t)slot * S::kStageBytes + (2 * j + p) * S::kPlaneBytes,
+                    src + ((size_t)(s * kSteps + j) * 2 + p) * a.Cout * 8, S::kPlaneBytes,
+                    &full[slot]);
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] += part[i][n][e];
+    return;
   }
 
-  // epilogue: rows g and g + 1 of a 16-row tile are lanes 4 apart
-  const int g = lane >> 2, q = lane & 3;
-  const int half = T / 2;  // MaxPool(2) floors odd lengths
-  float* yr = y + (long)rec * half * Cout;
+  if constexpr (S::kShiftRegs)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int lrow = lane & 15, lcol = (lane >> 4) * 4;  // ldmatrix: rows 0-15 x columns 0-3 | 4-7
+  const int mrow0 = wg * 64 * RM + warp * 16;          // this warp's first row of m64 tile 0
+  const int g8 = lane >> 2, q = lane & 3;
+  const int half = a.T / 2;  // MaxPool(2) floors odd lengths
+  const int cpt = a.CinP / 8;  // k8 steps a tap
+  int g = 0;                 // stages consumed so far
+  int buf = 0;
+
+  if (blockIdx.x < a.n_tiles) issue_rows<S>(a, blockIdx.x, xs0, tid);
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int ns = tile % nsl, rt = (tile / nsl) % a.row_tiles, rec = tile / (nsl * a.row_tiles);
+    const int t0 = rt * S::kBM;
+    float* xs = xs0 + (size_t)buf * S::kRows * xsr;
+    if (a.nxs == 1 && tile != blockIdx.x) {
+      consumer_sync<S::kConsumers>();  // every consumer is done with the last tile's rows
+      issue_rows<S>(a, tile, xs, tid);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    consumer_sync<S::kConsumers>();  // this tile's rows have landed
+    if (a.stats) {  // block 0: z-score the landed rows in place; the padding stays 0
+      const float* st = a.stats + (size_t)rec * a.Cin * 2;
+      for (int i = tid; i < S::kRows * a.Cin; i += S::kConsumers) {
+        const int r = i / a.Cin, c = i - r * a.Cin, t = t0 - kPad + r;
+        if (t >= 0 && t < a.T) {
+          float* v = xs + r * xsr + c;
+          *v = (*v - st[2 * c]) / st[2 * c + 1];
+        }
+      }
+      consumer_sync<S::kConsumers>();
+    }
+    const int next = tile + gridDim.x;
+    if (a.nxs == 2 && next < a.n_tiles)
+      issue_rows<S>(a, next, xs0 + (size_t)(buf ^ 1) * S::kRows * xsr, tid);
+
+    // each stage sums into part, which its first product starts from zero, and
+    // part is added to acc in f32: the tensor cores' own sums do not round to
+    // nearest, so their error compounds when one accumulator is chained over
+    // the whole reduction (up to 720 products); restarted each stage, the
+    // block stays within chip_smoke.py's per-block gate (2^-18 of the block's
+    // |x| conv |w|)
+    float acc[RM][S::kNacc], part[RM][S::kNacc];
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+    for (int rm = 0; rm < RM; ++rm)
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      float p[4];
+      for (int i = 0; i < S::kNacc; ++i) acc[rm][i] = 0.f;
+
+    const int arow = mrow0 + lrow;
+#pragma unroll 1
+    for (int s = 0; s < n_stage; ++s, ++g) {
+      // the stage's A fragments (k8 step (tap, c0): staged rows m + tap,
+      // channels c0..c0+7; an 8-wide slice never straddles taps), split
+      uint32_t ab[kSteps][RM][4], as[kSteps][RM][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[e] = __shfl_xor_sync(0xffffffffu, acc[mt][nt][e], 4);
-      if ((g & 1) == 0) {
-        const int col = n0 + wn0 + nt * 8 + q * 2;
-        const float b0 = bias[col], b1 = bias[col + 1];
-        const int row = t0 + wm0 + mt * 16 + g;  // even: a pool window starts here
+      for (int j = 0; j < kSteps; ++j) {
+        const int step = s * kSteps + j;
+        const int tap = step / cpt, c0 = (step - tap * cpt) * 8;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {  // rows g (c0, c1) and g + 8 (c2, c3)
-          const int prow = (row + 8 * h) / 2;
-          if (prow < half) {
-            float2 o;
-            o.x = fmaxf(fmaxf(acc[mt][nt][2 * h] + b0, 0.f), fmaxf(p[2 * h] + b0, 0.f));
-            o.y = fmaxf(fmaxf(acc[mt][nt][2 * h + 1] + b1, 0.f), fmaxf(p[2 * h + 1] + b1, 0.f));
-            *reinterpret_cast<float2*>(yr + (long)prow * Cout + col) = o;
+        for (int rm = 0; rm < RM; ++rm) {
+          uint32_t f[4];
+          ldmatrix_x4(f, xs + (arow + rm * 64 + tap) * xsr + c0 + lcol);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(f[e], ab[j][rm][e], as[j][rm][e]);
+        }
+      }
+      const int slot = a.resident ? s : g % a.stages;
+      mbar_wait(&full[slot], a.resident ? 0 : (g / a.stages) & 1);
+      const unsigned char* wb = ring + (size_t)slot * S::kStageBytes;
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const uint64_t big = b_desc(wb + 2 * j * S::kPlaneBytes, 128, 256);
+        const uint64_t small = big + (S::kPlaneBytes >> 4);
+#pragma unroll
+        for (int rm = 0; rm < RM; ++rm) {
+          if (j == 0) wgmma_tf32<BN, 0>(part[rm], as[j][rm], big);
+          else wgmma_tf32<BN, 1>(part[rm], as[j][rm], big);
+          wgmma_tf32<BN, 1>(part[rm], ab[j][rm], small);
+          wgmma_tf32<BN, 1>(part[rm], ab[j][rm], big);
+        }
+      }
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int rm = 0; rm < RM; ++rm)
+#pragma unroll
+        for (int i = 0; i < S::kNacc; ++i) pin(part[rm][i]);
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j)
+#pragma unroll
+        for (int rm = 0; rm < RM; ++rm)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pin(ab[j][rm][e]);
+            pin(as[j][rm][e]);
+          }
+      if (!a.resident && (tid & 127) == 0) mbar_arrive(&empty[slot]);
+#pragma unroll
+      for (int rm = 0; rm < RM; ++rm)
+#pragma unroll
+        for (int i = 0; i < S::kNacc; ++i) acc[rm][i] += part[rm][i];
+    }
+
+    // epilogue: sum i of n8 chunk c is row g8 (i < 2) or g8 + 8, column 8c +
+    // 2q + (i & 1); rows g8 and g8 + 1 of a pool window are lanes 4 apart
+    const int n0 = ns * BN;
+    float* y = a.y + (size_t)rec * half * a.Cout;
+#pragma unroll
+    for (int rm = 0; rm < RM; ++rm) {
+      const int row = t0 + mrow0 + rm * 64 + g8;  // even g8: a pool window starts here
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = __shfl_xor_sync(0xffffffffu, acc[rm][4 * c + e], 4);
+        if ((g8 & 1) == 0) {
+          const int col = n0 + 8 * c + 2 * q;
+          const float b0 = a.bias[col], b1 = a.bias[col + 1];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int prow = (row + 8 * h) / 2;
+            if (prow < half) {
+              float2 o;
+              o.x = fmaxf(fmaxf(acc[rm][4 * c + 2 * h] + b0, 0.f), fmaxf(p[2 * h] + b0, 0.f));
+              o.y = fmaxf(fmaxf(acc[rm][4 * c + 2 * h + 1] + b1, 0.f),
+                          fmaxf(p[2 * h + 1] + b1, 0.f));
+              *reinterpret_cast<float2*>(y + (size_t)prow * a.Cout + col) = o;
+            }
           }
         }
       }
     }
+    if (a.nxs == 2) buf ^= 1;
   }
 }
 
@@ -496,53 +709,66 @@ __global__ void mm_tail_kernel(const float* __restrict__ h, const float* __restr
   }
 }
 
-// a tile shape of the 3xTF32 conv block: kWarpsM x kWarpsN warps, each of
-// kMT x kNT mma tiles (16 x 8), and its weight stages (kKC columns, kStages)
-template <int kWarpsM, int kWarpsN, int kMT, int kNT, int kKC, int kStages>
-struct Tile {
-  static constexpr int kThreads = kWarpsM * kWarpsN * 32;
-  static constexpr int kBM = kWarpsM * kMT * 16;
-  static constexpr int kBN = kWarpsN * kNT * 8;
-  static size_t smem(int CinP) {
-    return ((size_t)(kBM + kK - 1) * (CinP + 4) + (size_t)kStages * 2 * kBN * (kKC + 4)) *
-           sizeof(float);
-  }
-  static int row_tiles(int T) { return (2 * (T / 2) + kBM - 1) / kBM; }
-  static bool fits(int Cout, int CinP) { return Cout % kBN == 0 && smem(CinP) <= kSmemMax; }
-  static long blocks(int B, int T, int Cout) { return (long)B * row_tiles(T) * (Cout / kBN); }
+// A tile's launch plan: two staged tiles when a CTA takes more than one tile,
+// else one, and a weight ring as deep as the shared memory left over holds
+// (up to kMaxStages), or the whole slice for the CTA's life when Cout == BN
+// and it fits.  False when the channels do not divide or no ring of two fits.
+template <int BN, int RM, int WGS, int MINB, int STEPS>
+struct Tf32Tile {
+  using S = WgTile<BN, RM, WGS, STEPS, MINB>;
+  // shared memory a CTA may take with MINB CTAs an SM (228 KB an SM, 1 KB of
+  // it reserved a CTA, 227 KB at most a CTA)
+  static constexpr size_t kBudget = MINB == 1 ? kSmemMax : 233472 / MINB - 1024;
+  static int row_tiles(int T) { return (2 * (T / 2) + S::kBM - 1) / S::kBM; }
 
-  static cudaError_t launch(const float* x, const float* stats, const float* w3, const float* b,
-                            float* y, int B, int T, int Cin, int CinP, int Cout,
-                            cudaStream_t st) {
-    const size_t bytes = smem(CinP);
-    if (!fits(Cout, CinP)) return cudaErrorInvalidValue;
-    auto kern = stats
-        ? &tf32x3_conv_block_kernel<kWarpsM, kWarpsN, kMT, kNT, kKC, kStages, true>
-        : &tf32x3_conv_block_kernel<kWarpsM, kWarpsN, kMT, kNT, kKC, kStages, false>;
-    if (bytes > 48 * 1024) {
-      cudaError_t err =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return err;
+  static bool plan(ConvArgs& a, int B, int sms, size_t& smem, int& grid) {
+    if (a.Cout % BN || (kK * a.CinP / 8) % STEPS) return false;
+    const long n = (long)B * row_tiles(a.T) * (a.Cout / BN), cap = (long)sms * MINB;
+    if (n > 0x7fffffff) return false;
+    const size_t xs = (size_t)S::kRows * (a.CinP + kXSkew) * sizeof(float);
+    const int n_stage = kK * a.CinP / 8 / STEPS;
+    const size_t slot = S::kStageBytes + 2 * sizeof(uint64_t);  // a stage and its two mbarriers
+    for (int nxs = n > cap ? 2 : 1; nxs >= 1; --nxs) {
+      if (nxs * xs >= kBudget) continue;
+      const size_t avail = kBudget - nxs * xs;
+      const bool resident = a.Cout == BN && (size_t)n_stage * slot <= avail;
+      const size_t fit = avail / slot;
+      const int stages = resident ? n_stage : (int)(fit < (size_t)kMaxStages ? fit : kMaxStages);
+      if (stages < 2) continue;
+      a.row_tiles = row_tiles(a.T);
+      a.n_tiles = (int)n;
+      a.stages = stages;
+      a.resident = resident;
+      a.nxs = nxs;
+      smem = nxs * xs + stages * slot;
+      grid = (int)(n < cap ? n : cap);
+      return true;
     }
-    const int rt = row_tiles(T);
-    dim3 grid(B * rt, Cout / kBN);
-    kern<<<grid, kThreads, bytes, st>>>(x, stats, w3, b, y, T, Cin, CinP, Cout, rt);
+    return false;
+  }
+
+  static cudaError_t launch(const ConvArgs& a, size_t smem, int grid, cudaStream_t st) {
+    auto kern = tf32x3_conv_block_kernel<BN, RM, WGS, MINB, STEPS>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, S::kThreads, smem, st>>>(a);
     return cudaGetLastError();
   }
 };
 
-// The large tiles are the widest that fit one 8-warp block an SM at each
-// block's CinP (see the note at the top); the medium and small ones keep a
-// small batch's grid full.  chip_smoke.py's k2_blocks phase gates and times
-// each block with the tile this launcher picks at B = 1, 16 and 512.
-using TileWide = Tile<4, 2, 2, 8, 64, 2>;    // 128 x 128, 8 warps of 32 x 64
-using TileMid = Tile<4, 2, 4, 4, 64, 2>;     // 256 x 64, 8 warps of 64 x 32
-using TileNarrow = Tile<8, 1, 2, 4, 32, 3>;  // 256 x 32, 8 warps of 32 x 32
-using TileMedium = Tile<2, 2, 2, 4, 64, 2>;  // 64 x 64, 4 warps of 32 x 32
-using TileSmall = Tile<2, 1, 1, 4, 64, 2>;   // 32 x 32, 2 warps of 16 x 32
+// The tiles, widest first, one a line: X(BN, RM, consumer warpgroups, CTAs an
+// SM, k8 steps a weight stage), from timing every block at B = 1, 16 and 512
+// on the H100 (PERF.md §6).  The launcher takes the first row whose
+// channels divide Cout, whose stages tile the reduction, whose shared memory
+// fits and whose grid gives every SM a tile; else the last that fits (the
+// smallest tile, so a B=1 chunk still spreads over the card).
+#define PTBXL_TF32_TILES(X) \
+  X(128, 1, 2, 1, 8)  /* m128 x n128: blocks 2 and 3 */      \
+  X(64,  2, 2, 1, 4)  /* m256 x n64: block 1 */               \
+  X(32,  2, 2, 1, 5)  /* m256 x n32: block 0 */               \
+  X(32,  1, 1, 2, 3)  /* m64 x n32, one warpgroup: B = 1 */
 
-// the largest tile whose grid gives every SM at least two blocks (the small
-// one when none does)
 int conv_block_tf32x3(int device, const void* x, const void* stats, const void* w3, const void* b,
                       void* y, int B, int T, int Cin, int CinP, int Cout, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -553,25 +779,34 @@ int conv_block_tf32x3(int device, const void* x, const void* stats, const void* 
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xs = static_cast<const float*>(x);
-  const float* ss = static_cast<const float*>(stats);
-  const float* ws = static_cast<const float*>(w3);
-  const float* bs = static_cast<const float*>(b);
-  float* ys = static_cast<float*>(y);
-  const long enough = 2L * sms;
-  if (TileWide::fits(Cout, CinP)) {
-    if (TileWide::blocks(B, T, Cout) >= enough)
-      return (int)TileWide::launch(xs, ss, ws, bs, ys, B, T, Cin, CinP, Cout, st);
-  } else if (TileMid::fits(Cout, CinP)) {
-    if (TileMid::blocks(B, T, Cout) >= enough)
-      return (int)TileMid::launch(xs, ss, ws, bs, ys, B, T, Cin, CinP, Cout, st);
-  } else if (TileNarrow::fits(Cout, CinP)) {
-    if (TileNarrow::blocks(B, T, Cout) >= enough)
-      return (int)TileNarrow::launch(xs, ss, ws, bs, ys, B, T, Cin, CinP, Cout, st);
+  ConvArgs a{};
+  a.x = static_cast<const float*>(x);
+  a.stats = static_cast<const float*>(stats);
+  a.w = static_cast<const float*>(w3);
+  a.bias = static_cast<const float*>(b);
+  a.y = static_cast<float*>(y);
+  a.T = T, a.Cin = Cin, a.CinP = CinP, a.Cout = Cout;
+  a.vec = Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // the first row that fits with a tile for every SM, else the last that fits
+  cudaError_t (*fallback)(const ConvArgs&, size_t, int, cudaStream_t) = nullptr;
+  ConvArgs fa{};
+  size_t fsmem = 0;
+  int fgrid = 0;
+#define PTBXL_TF32_TRY(BN, RM, WGS, MINB, STEPS)                                  \
+  {                                                                               \
+    using Tl = Tf32Tile<BN, RM, WGS, MINB, STEPS>;                                \
+    ConvArgs c = a;                                                               \
+    size_t smem = 0;                                                              \
+    int grid = 0;                                                                 \
+    if (Tl::plan(c, B, sms, smem, grid)) {                                        \
+      if (c.n_tiles >= sms) return (int)Tl::launch(c, smem, grid, st);            \
+      fallback = &Tl::launch, fa = c, fsmem = smem, fgrid = grid;                 \
+    }                                                                             \
   }
-  if (TileMedium::fits(Cout, CinP) && TileMedium::blocks(B, T, Cout) >= enough)
-    return (int)TileMedium::launch(xs, ss, ws, bs, ys, B, T, Cin, CinP, Cout, st);
-  return (int)TileSmall::launch(xs, ss, ws, bs, ys, B, T, Cin, CinP, Cout, st);
+  PTBXL_TF32_TILES(PTBXL_TF32_TRY)
+#undef PTBXL_TF32_TRY
+  if (!fallback) return (int)cudaErrorInvalidValue;
+  return (int)fallback(fa, fsmem, fgrid, st);
 }
 
 template <int kCO>
@@ -588,10 +823,10 @@ void launch_conv_bf16(const float* x, const float* w, const float* b, float* y, 
 
 extern "C" {
 
-// One f32 conv block on the tensor cores (3xTF32), SAME padding.  x [B, T,
-// Cin] f32; stats [B, Cin, 2] or null (no z-score on load); w3 [2, Cout,
-// 15*CinP] from prepare_weights; b [Cout]; y [B, T/2, Cout].  CinP % 8 == 0,
-// CinP >= Cin, Cout % 32 == 0, T >= 2; the tile follows the grid.
+// One f32 conv block on wgmma (3xTF32), SAME padding.  x [B, T, Cin] f32;
+// stats [B, Cin, 2] or null (no z-score on load); w3 [15*CinP/8, 2, 8*Cout]
+// from prepare_weights; b [Cout]; y [B, T/2, Cout].  CinP % 8 == 0, CinP >=
+// Cin, Cout % 32 == 0, T >= 2; the tile follows the grid (PTBXL_TF32_TILES).
 int ptbxl_conv_block_tf32x3(int device, const void* x, const void* stats, const void* w3,
                             const void* b, void* y, int B, int T, int Cin, int CinP, int Cout,
                             void* stream) {

@@ -10,22 +10,28 @@ Replaces ``ptbxl_tpu/ops/pallas/fused_ecgcnn.py``: ``_make_kernel`` (:89),
 ``zscore_stats``.
 
 What bounds it on the H100: operations, 1.133 GFLOP a record at T=5000: at
-B=512, 8.65 ms at the FP32 FMA rate, 3.52 ms as the three TF32 products a
-f32 product takes on the tensor cores (3xTF32, 495 TFLOP/s).  The TPU kernel
-keeps a whole record on chip; an H100 block cannot (227 KB of shared memory,
-a 240 KB input), so the forward is a short sequence of launches on the
-current stream: ``zscore_stats`` (when ``normalize``), one conv-block kernel
-per block, and one tail kernel (mean over T, proj, head).  In f32 the conv
-block is an implicit GEMM on the tensor cores in 3xTF32: the input is split
-as ``big + small`` in registers, the weights once on the host
-(``prepare_weights``), and each product is three TF32 ``mma.sync`` products
-with f32 sums, to about 2^-22 of each product; the z-score is applied while
-block 0's input is staged, and bias, ReLU and the floor pool happen in the
-epilogue.  Intermediates go through device memory, allocated here with
-``torch.empty``; the source says why that costs little.  K3 runs the same
-backbone launches and ends in its own tail kernel (mean over T, proj,
-demographics MLP, FiLM, head); its bound is K2's.  Left for later: ``wgmma``
-with TF32 operands fed by TMA, and fusing blocks.
+B=512, 8.65 ms at the FP32 FMA rate, 3.51 ms as the three TF32 products a
+f32 product takes on the tensor cores (3xTF32, 495 TFLOP/s; the blocks 0.18
+/ 0.48 / 0.95 / 1.91 ms).  The TPU kernel keeps a whole record on chip; an
+H100 block cannot (227 KB of shared memory, a 240 KB input), so the forward
+is a short sequence of launches on the current stream: ``zscore_stats``
+(when ``normalize``), one conv-block kernel per block, and one tail kernel
+(mean over T, proj, head).  In f32 the conv block is an implicit GEMM on
+Hopper's warpgroup MMA in 3xTF32 (``wgmma`` m64nNk8, TF32 operands, f32
+sums): each tile's input rows are staged once with their halo, read as
+register-A fragments and split as ``big + small`` in registers; the weights
+are split once on the host (``prepare_weights``, in ``wgmma``'s core-matrix
+order) and streamed by a producer warp through a ring of stages of up to 64
+reduction columns; each product is three TF32 products, small terms first,
+into sums that restart every stage and are added up in f32, to about 2^-22
+of each product.  The z-score is applied to block 0's staged rows, and bias,
+ReLU and the floor pool happen in the epilogue.  The tile follows the grid
+(m128 x n128 for blocks 2 and 3, m256 x n64 and m256 x n32 for blocks 1 and
+0, m64 x n32 where a grid would not give every SM a tile); the source says
+why.  Intermediates go through device memory, allocated here with
+``torch.empty``.  K3 runs the same backbone launches and ends in its own
+tail kernel (mean over T, proj, demographics MLP, FiLM, head); its bound is
+K2's.  Left for later: fusing blocks.
 
 In bf16 both run K4's launch sequence on the tensor cores
 (``hybrid_ecgcnn.wgmma_sums``): the stats, one ``wgmma`` conv block a block
@@ -43,7 +49,8 @@ where the JAX products round.  A CUDA tensor launches the kernels or raises.
 ``card_logits`` / ``card_mm_logits`` on CPU tensors run the card's launch
 sequence with every launch's plain version.  ``launches`` counts K2 forwards
 launched on the card and ``launches_mm`` K3 forwards (each is the sequence
-above, in either dtype).
+above, in either dtype); ``conv_block_launches`` counts the 3xTF32 conv
+blocks launched (four an f32 forward, K4's f32 deep blocks too).
 
 The probability forwards are also the custom ops ``ptbxl::fused_ecgcnn_probs``
 and ``ptbxl::fused_multimodal_probs`` (registered when this module is
@@ -71,9 +78,10 @@ from ptbxl_torch.utils.device import highest_precision
 K = 15
 PAD = K // 2
 MAX_LABELS = 128  # the TPU kernels' output tile (fused_ecgcnn.py:131, :298)
-CH_MULT = 8  # the tensor-core conv block pads channels to a multiple of the mma depth
+CH_MULT = 8  # the tensor-core conv block pads channels to whole k8 steps
 launches = 0
 launches_mm = 0
+conv_block_launches = 0  # 3xTF32 conv blocks launched on the card (``conv_block_tf32x3``)
 
 _I, _P = _build.INT, _build.VOIDP
 _SIGNATURES = {
@@ -223,19 +231,41 @@ def _mm_tail_plain(z_ecg: torch.Tensor, demo: torch.Tensor, folded: Folded,
 
 
 def tf32x3_weight(w: torch.Tensor) -> torch.Tensor:
-    """[15, Cin, Cout] f32 -> the tensor-core conv block's weights [2, Cout, 15*CinP] f32.
+    """[15, Cin, Cout] f32 -> the tensor-core conv block's weights [15*CinP/8, 2, 8*Cout] f32.
 
-    Channels are zero-padded to ``CinP``, a multiple of ``CH_MULT``; column
-    ``k*CinP + c`` of row ``o`` is ``w[k, c, o]``, so the kernel's B fragments
-    load without a transpose.  Plane 0 is ``big = tf32_round(w)``, plane 1
-    ``small = tf32_round(w - big)``: both TF32 values, ``big + small`` within
-    2^-22 of ``w``.
+    Channels are zero-padded to ``CinP``, a multiple of ``CH_MULT``, and the
+    reduction runs over columns ``k*CinP + c`` in k8 steps.  Step ``s`` holds
+    two planes, ``big = tf32_round(w)`` and ``small = tf32_round(w - big)``
+    (both TF32 values, ``big + small`` within 2^-22 of ``w``), each in
+    ``wgmma``'s K-major core-matrix order without swizzle: ``[Cout/8][2][8][4]``
+    (8-channel group, K half, channel, column), so a slice of channels of one
+    step's plane is one contiguous run the kernel copies as it is.
+    ``tf32x3_weight_unpack`` reads it back.
     """
     k, cin, cout = w.shape
     cin_p = -(-cin // CH_MULT) * CH_MULT
     wt = F.pad(w.float(), (0, 0, 0, cin_p - cin)).permute(2, 0, 1).reshape(cout, k * cin_p)
     big = tf32_round(wt)
-    return torch.stack([big, tf32_round(wt - big)]).contiguous()
+    planes = torch.stack([big, tf32_round(wt - big)])  # [2, Cout, 15*CinP]
+    steps = k * cin_p // 8
+    # [plane, group, channel, step, K half, column] -> [step, plane, group, K half, channel, column]
+    core = planes.view(2, cout // 8, 8, steps, 2, 4).permute(3, 0, 1, 4, 2, 5)
+    return core.reshape(steps, 2, 8 * cout).contiguous()
+
+
+def tf32x3_weight_unpack(w3: torch.Tensor) -> torch.Tensor:
+    """``tf32x3_weight``'s layout back to its planes: [2, Cout, 15*CinP], big
+    then small, column ``k*CinP + c`` of row ``o`` from ``w[k, c, o]``."""
+    steps, cout = w3.shape[0], w3.shape[2] // 8
+    core = w3.view(steps, 2, cout // 8, 2, 8, 4).permute(1, 2, 4, 0, 3, 5)
+    return core.reshape(2, cout, steps * 8)
+
+
+def _w3_shape(w3: torch.Tensor) -> Tuple[int, int]:
+    """(Cout, CinP) of ``tf32x3_weight``'s layout, or (0, 0) when it is not one."""
+    if w3.dim() != 3 or w3.shape[1] != 2 or w3.shape[2] % 8 or (w3.shape[0] * 8) % K:
+        return 0, 0
+    return w3.shape[2] // 8, w3.shape[0] * 8 // K
 
 
 def prepare_weights(folded: Folded) -> list:
@@ -277,8 +307,9 @@ def conv_block_tf32x3_plain(x: torch.Tensor, w3: torch.Tensor, b: torch.Tensor,
     """Plain version of ``conv_block_tf32x3``: the exact-f32 block
     (``_conv_block_plain``, TF32 off) with ``w = big + small`` read back from ``w3``."""
     cin = x.shape[2]
-    cout, cin_p = w3.shape[1], w3.shape[2] // K
-    w = (w3[0] + w3[1]).view(cout, K, cin_p).permute(1, 2, 0)[:, :cin]
+    cout, cin_p = _w3_shape(w3)
+    big, small = tf32x3_weight_unpack(w3)
+    w = (big + small).view(cout, K, cin_p).permute(1, 2, 0)[:, :cin]
     h = x if stats is None else (x - stats[:, None, :, 0]) / stats[:, None, :, 1]
     with highest_precision():
         return _conv_block_plain(F.pad(h, (0, 0, PAD, PAD)), w, b, torch.float32)
@@ -286,16 +317,18 @@ def conv_block_tf32x3_plain(x: torch.Tensor, w3: torch.Tensor, b: torch.Tensor,
 
 def conv_block_tf32x3(x: torch.Tensor, w3: torch.Tensor, b: torch.Tensor,
                       stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One f32 conv block on the tensor cores (3xTF32): x [B, T, Cin] f32 ->
+    """One f32 conv block on ``wgmma`` (3xTF32): x [B, T, Cin] f32 ->
     pool(relu(conv_SAME(z(x), w) + b)) [B, T//2, Cout], where ``w3`` is
     ``tf32x3_weight(w)`` and ``z`` the z-score from ``stats`` ([B, Cin, 2],
-    ``zscore_stats``) or none.  The kernel picks its tile from the grid.  A
-    CPU tensor takes ``conv_block_tf32x3_plain``."""
+    ``zscore_stats``) or none.  The kernel picks its tile from the grid;
+    each launch counts in ``conv_block_launches``.  A CPU tensor takes
+    ``conv_block_tf32x3_plain``."""
+    global conv_block_launches
     bsz, t, cin = x.shape
-    cout, cin_p = w3.shape[1], w3.shape[2] // K
-    if (t < 2 or cout % 32 or cin_p % CH_MULT or cin_p < cin
-            or tuple(w3.shape) != (2, cout, K * cin_p) or tuple(b.shape) != (cout,)):
-        raise ValueError(f"conv block needs T >= 2, Cout % 32 == 0 and w3 [2, Cout, 15*CinP] "
+    cout, cin_p = _w3_shape(w3)
+    if (t < 2 or not cout or cout % 32 or cin_p % CH_MULT or cin_p < cin
+            or tuple(b.shape) != (cout,)):
+        raise ValueError(f"conv block needs T >= 2, Cout % 32 == 0 and w3 [15*CinP/8, 2, 8*Cout] "
                          f"with CinP % {CH_MULT} == 0, CinP >= Cin; got x {tuple(x.shape)}, "
                          f"w3 {tuple(w3.shape)}, b {tuple(b.shape)}")
     if stats is not None and tuple(stats.shape) != (bsz, cin, 2):
@@ -313,6 +346,7 @@ def conv_block_tf32x3(x: torch.Tensor, w3: torch.Tensor, b: torch.Tensor,
         b.data_ptr(), y.data_ptr(), bsz, t, cin, cin_p, cout,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "tf32x3 conv block launch")
+    conv_block_launches += 1
     return y
 
 
