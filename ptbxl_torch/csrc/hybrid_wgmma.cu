@@ -88,9 +88,7 @@
 // no faster (tools/tune_wgmma.py, PERF.md), so each block is a launch of its
 // own.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #include <type_traits>
 
@@ -132,16 +130,6 @@ enum OutPolicy : int {
   kOutF32CM = 3,  // f32 [B, Cout, T/2] (P4)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (lower address)
   return *reinterpret_cast<uint32_t*>(&v);
@@ -155,73 +143,6 @@ __device__ __forceinline__ float pool1(float a, float p, float b) {
 __device__ __forceinline__ uint32_t pool_pair(float a0, float a1, float p0, float p1, float b0,
                                               float b1) {
   return pack_bf16(pool1(a0, p0, b0), pool1(a1, p1, b1));
-}
-
-// -- mbarriers and the bulk copy ---------------------------------------------
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// wait for the completion of the phase with this parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-// 16 bytes global -> shared, or zeros when !valid (no global read then)
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-// 4 bytes global -> shared, or zeros when !valid
-__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// -- wgmma ----------------------------------------------------------------------
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>  // wait until at most N committed groups of products are in flight
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep a register live and unmoved across this point (an async product reads it)
-__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)::"memory"); }
-__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
-
-// B descriptor: K-major, no swizzle; start, leading (K) and stride (N) byte offsets
-__device__ __forceinline__ uint64_t b_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
 }
 
 // d[N/2] += A (64 x 16, registers, this warp's 16 rows) * B (16 x N, shared)
@@ -545,7 +466,7 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);  // one arrival a consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   __syncthreads();
 
@@ -588,14 +509,15 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
     const int t0 = rt * S::BM;
     __nv_bfloat16* xs = xs0 + buf * (S::ROWS * S::XS);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    consumer_sync();  // this tile's input has landed; every consumer is done with the last tile
+    // this tile's input has landed; every consumer is done with the last tile
+    consumer_sync<kConsumers>();
     if constexpr (IN == kInF32CM) {
       cm_rows_to_tile<CINP, S::ROWS, S::XS>(raw, xs, tid);
-      consumer_sync();  // the raw rows are free for the next tile
+      consumer_sync<kConsumers>();  // the raw rows are free for the next tile
     } else if constexpr (S::F32_IN) {
       zscore_rows<CINP, S::XS>(raw, xs, S::ROWS, t0 - S::OFF, T, Cin,
                                stats ? stats + (size_t)rec * Cin * 2 : nullptr, tid);
-      consumer_sync();  // the raw rows are free for the next tile
+      consumer_sync<kConsumers>();  // the raw rows are free for the next tile
     }
     const int next = tile + gridDim.x;
     if (next < n_tiles) {
@@ -658,7 +580,8 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
       float* y = static_cast<float*>(yout) + ((size_t)rec * Cout + n0) * half;
 #pragma unroll
       for (int part = 0; part < S::OUT_PARTS; ++part) {
-        consumer_sync();  // every consumer is past its products, or done with the last part
+        // every consumer is past its products, or done with the last part
+        consumer_sync<kConsumers>();
 #pragma unroll
         for (int rm = 0; rm < RM; ++rm) {
           const int lr = mrow0 + rm * 64 + g8;  // the tile's conv row; even g8: a window
@@ -681,7 +604,7 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
             }
           }
         }
-        consumer_sync();
+        consumer_sync<kConsumers>();
         for (int i = tid; i < PB * PR; i += kConsumers) {
           const int n = i / PR, prow = t0 / 2 + i % PR;
           if (prow < half) y[(size_t)(part * PB + n) * half + prow] = stage[n * S::OS + i % PR];
@@ -722,7 +645,7 @@ wgmma_conv_block_kernel(const void* __restrict__ xin, const float* __restrict__ 
           red[cw * BN + 8 * c + 2 * q + 1] = s1;
         }
       }
-      consumer_sync();
+      consumer_sync<kConsumers>();
       float* y = static_cast<float*>(yout) + ((size_t)rec * row_tiles + rt) * Cout + n0;
       for (int n = tid; n < BN; n += kConsumers) {
         float sum = 0.f;
@@ -774,10 +697,6 @@ cudaError_t launch_mode(int sums, const void* x, const float* stats, const void*
 }
 
 // -- the tail: channel sums -> mean -> proj -> head --------------------------------
-__device__ __forceinline__ float rnd_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // part [B, n_tiles, C] -> logits [B, L]: g = sum_tiles (1/T) * part (tile
 // order); z = bf16(g) @ bf16(pw) + pb; logits = bf16(z) @ bf16(hw) + hb
 __global__ void sums_tail_kernel(const float* __restrict__ part, const float* __restrict__ pw,
@@ -876,14 +795,6 @@ __global__ void mm_sums_tail_kernel(const float* __restrict__ part, const float*
   }
 }
 
-// the calling thread's device, set only when it differs
-cudaError_t ensure_device(int device) {
-  int cur = -1;
-  cudaError_t err = cudaGetDevice(&cur);
-  if (err != cudaSuccess) return err;
-  return cur == device ? cudaSuccess : cudaSetDevice(device);
-}
-
 }  // namespace
 
 extern "C" {
@@ -897,7 +808,7 @@ extern "C" {
 int ptbxl_wgmma_conv_block(int device, const void* x, const void* stats, const void* w,
                            const void* b, void* y, int B, int T, int Cin, int CinP, int Cout,
                            int in_f32, int sums, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T < 2 || Cin <= 0 || Cin > CinP) return (int)cudaErrorInvalidValue;
   if (in_f32 != (CinP == 16) || (in_f32 ? Cin % 4 != 0 : (stats != nullptr || Cin != CinP)))
@@ -924,7 +835,7 @@ int ptbxl_wgmma_conv_block(int device, const void* x, const void* stats, const v
 int ptbxl_wgmma_conv_layer(int device, const void* x, const void* w, const void* b, void* y, int B,
                            int Tx, int Cin, int CinP, int Cout, int channel_major,
                            int transpose_out, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || Tx < kK + 1 || Cin <= 0 || Cin > CinP) return (int)cudaErrorInvalidValue;
   if (channel_major ? Cin != CinP
@@ -953,7 +864,7 @@ int ptbxl_wgmma_conv_layer(int device, const void* x, const void* w, const void*
 int ptbxl_sums_tail(int device, const void* part, const void* pw, const void* pb, const void* hw,
                     const void* hb, void* logits, int B, int n_tiles, int T, int C, int F, int L,
                     void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || n_tiles <= 0 || T <= 0 || C <= 0 || F <= 0 || L <= 0)
     return (int)cudaErrorInvalidValue;
@@ -973,7 +884,7 @@ int ptbxl_mm_sums_tail(int device, const void* part, const void* pw, const void*
                        const void* film_w, const void* film_b, const void* hw, const void* hb,
                        const void* demo, void* logits, int B, int n_tiles, int T, int C, int F,
                        int D, int H1, int H, int L, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || n_tiles <= 0 || T <= 0 || C <= 0 || F <= 0 || D <= 0 || H1 <= 0 || H <= 0 ||
       L <= 0)
@@ -986,7 +897,5 @@ int ptbxl_mm_sums_tail(int device, const void* part, const void* pw, const void*
       f(hb), f(demo), static_cast<float*>(logits), n_tiles, T, C, F, D, H1, H, L);
   return (int)cudaGetLastError();
 }
-
-const char* ptbxl_strerror(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 }  // extern "C"

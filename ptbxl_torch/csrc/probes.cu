@@ -16,10 +16,10 @@
 // bytes at 3.35 TB/s, and a kernel launched back to back in a CUDA graph costs
 // about 2 us, so the data-movement probes are bound by the launch.  A call's
 // time outside a graph is mostly the host's (tools/probe_dispatch.py: 13-20
-// us of host work a launch), so every entry keeps the host path short: it
-// sets the device only when the caller's differs (cudaGetDevice, not
-// cudaSetDevice on every call), and the Python side binds each entry once and
-// passes the raw stream handle (ops/kernels/probes.py).
+// us of host work a launch), so the host path is kept short: every entry
+// sets the device only when the caller's differs (ptbxl_ensure_device in
+// hopper.cuh), and the Python side binds each entry once and passes the raw
+// stream handle (ops/kernels/_build.py, Library).
 //
 // p1 (TN, tools/probe_mosaic.py:54) and p2 (NT, :71) are [2048, 256] x
 // [256, 128] products in TF32: 134 MFLOP, 0.27 us at 495 TFLOP/s, and 3.3 MB,
@@ -41,8 +41,7 @@
 // Precision: p1 and p2 round their operands to TF32 (cvt.rna: nearest, ties
 // away from zero) and sum in f32 on the tensor cores, the card's counterpart
 // of the TPU's default product precision.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -55,76 +54,6 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the mbarrier and the 1-D bulk copy (cp.async.bulk) that completes on it
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-// order this thread's shared-memory stores before the async proxy's reads (wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {  // every committed group of products is done
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep a register live and unmoved across this point (an async product reads it)
-__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)::"memory"); }
-__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
-
-// B descriptor: K-major, no swizzle; start, leading (K) and stride (N) byte offsets
-__device__ __forceinline__ uint64_t b_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-// d[16] += A (64 x 8 tf32, registers: this warp's 16 rows) * B (8 x 32 tf32, shared)
-__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a, uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // p1, p2: the TF32 dot on wgmma.  A CTA owns a kWM x kWN tile of C (one
@@ -195,7 +124,7 @@ __device__ __forceinline__ void cp_async_wait() {
 template <bool kAK>
 __device__ __forceinline__ void dot_chunk(float* acc, uint32_t (&af)[kWSteps][4], const float* al,
                                           int as, const float* bc, int k0, int r0, int t) {
-  wg_wait0();
+  wg_wait<0>();
 #pragma unroll
   for (int j = 0; j < kWSteps; ++j)
 #pragma unroll
@@ -212,7 +141,7 @@ __device__ __forceinline__ void dot_chunk(float* acc, uint32_t (&af)[kWSteps][4]
   const uint64_t desc = b_desc(bc + (size_t)k0 * kWN, 512, 128);
   wg_fence();
 #pragma unroll
-  for (int j = 0; j < kWSteps; ++j) wgmma_tf32_n32(acc, af[j], desc + 64 * j);
+  for (int j = 0; j < kWSteps; ++j) wgmma_tf32<32, 1>(acc, af[j], desc + 64 * j);
   wg_commit();
 }
 
@@ -236,6 +165,7 @@ dot_wgmma_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (tid == 0) {
     mbar_init(&bars[0], 1);
     mbar_init(&bars[1], 1);
+    fence_mbarrier_init();
     mbar_expect_tx(&bars[0], kBK ? kWN * K * 4 : 0);
     mbar_expect_tx(&bars[1], kAK ? kWM * K * 4 : 0);
   }
@@ -307,7 +237,7 @@ dot_wgmma_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
   uint32_t af[kWSteps][4];
   for (int k0 = 0; k0 < K; k0 += 8 * kWSteps) dot_chunk<kAK>(acc, af, al, as, bc, k0, r0, t);
-  wg_wait0();
+  wg_wait<0>();
 #pragma unroll
   for (int i = 0; i < 16; ++i) pin(acc[i]);
 #pragma unroll
@@ -588,15 +518,6 @@ int grid_for(long n) {
   return (int)(g < 4096 ? (g > 0 ? g : 1) : 4096);
 }
 
-// the calling thread's device, set only when it differs (a launch's host
-// cost is most of what these probes measure)
-cudaError_t ensure_device(int device) {
-  int cur = -1;
-  cudaError_t err = cudaGetDevice(&cur);
-  if (err != cudaSuccess) return err;
-  return cur == device ? cudaSuccess : cudaSetDevice(device);
-}
-
 cudaError_t with_smem(const void* kernel, size_t bytes) {
   if (bytes > 232448) return cudaErrorInvalidValue;
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -617,7 +538,7 @@ extern "C" {
 int ptbxl_probe_dot(int device, const void* a, const void* b, void* c, int M, int N, int K,
                     long long sam, long long sak, long long sbk, long long sbn, int tf32,
                     int grid_m, int grid_n, long long smem, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* as = static_cast<const float*>(a);
@@ -648,7 +569,7 @@ int ptbxl_probe_dot(int device, const void* a, const void* b, void* c, int M, in
 // p3, p3b: out [C, T] = roll(x, sl, axis=1) + roll(x, ss, axis=0)
 int ptbxl_probe_roll_add(int device, const void* x, void* out, int C, int T, int sl, int ss,
                          void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (C <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)T * 4;
@@ -663,7 +584,7 @@ int ptbxl_probe_roll_add(int device, const void* x, void* out, int C, int T, int
 // p4: out [KS*C, T], block k = roll(x, -k, axis=1)
 int ptbxl_probe_subblock(int device, const void* x, void* out, int C, int T, int KS,
                          void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (C <= 0 || T <= 0 || KS <= 0 || KS > T) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)T * 4;
@@ -676,7 +597,7 @@ int ptbxl_probe_subblock(int device, const void* x, void* out, int C, int T, int
 // p5, p5b2: max of stride-2 slices, along rows (lane = 0) or columns (lane = 1)
 int ptbxl_probe_pool_slices(int device, const void* x, void* y, int R, int W, int lane,
                             void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || W <= 0 || (lane ? W % 2 : R % 2)) return (int)cudaErrorInvalidValue;
   const long n = (long)R * W / 2;
@@ -687,7 +608,7 @@ int ptbxl_probe_pool_slices(int device, const void* x, void* y, int R, int W, in
 
 // p5b: max over axis 1 of x.reshape(R/2, 2, W)
 int ptbxl_probe_pool_rows_reshape(int device, const void* x, void* y, int R, int W, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || W <= 0 || R % 2) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)2 * W * 4;
@@ -700,7 +621,7 @@ int ptbxl_probe_pool_rows_reshape(int device, const void* x, void* y, int R, int
 // p5c: max over axis 2 of x.reshape(R, W/2, 2)
 int ptbxl_probe_pool_lanes_reshape(int device, const void* x, void* y, int R, int W,
                                    void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || W <= 0 || W % 2) return (int)cudaErrorInvalidValue;
   const long n = (long)R * W / 2;
@@ -712,7 +633,7 @@ int ptbxl_probe_pool_lanes_reshape(int device, const void* x, void* y, int R, in
 // p6: out [C, Wo] = sum_{k < KS} x[:, k : k + Wo]; Wo + KS - 1 <= T
 int ptbxl_probe_window_sum(int device, const void* x, void* out, int C, int T, int Wo, int KS,
                            void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (C <= 0 || Wo <= 0 || KS <= 0 || Wo + KS - 1 > T) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)T * 4;
@@ -724,7 +645,7 @@ int ptbxl_probe_window_sum(int device, const void* x, void* out, int C, int T, i
 
 // p7: out [To, KS*C] = concat_k x[k : k + To] along columns; x [To + KS - 1, C]
 int ptbxl_probe_concat(int device, const void* x, void* out, int To, int C, int KS, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (To <= 0 || C <= 0 || KS <= 0) return (int)cudaErrorInvalidValue;
   const int grid = (To + kCWarps - 1) / kCWarps;
@@ -740,7 +661,7 @@ int ptbxl_probe_concat(int device, const void* x, void* out, int To, int C, int 
 
 // p8: out [W, R] = x^T, x [R, W]
 int ptbxl_probe_transpose(int device, const void* x, void* out, int R, int W, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   dim3 grid((W + 31) / 32, (R + 31) / 32);
@@ -748,7 +669,5 @@ int ptbxl_probe_transpose(int device, const void* x, void* out, int R, int W, vo
       static_cast<const float*>(x), static_cast<float*>(out), R, W);
   return (int)cudaGetLastError();
 }
-
-const char* ptbxl_strerror(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 }  // extern "C"

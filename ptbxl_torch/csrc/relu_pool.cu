@@ -23,10 +23,9 @@
 // BatchNorm backward, is later work.  Nothing is saved from the forward
 // but h: the window max is recomputed here, where torch's own max_pool1d
 // backward keeps int64 argmax indices (twice the pooled output's f32 bytes).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <climits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -90,7 +89,7 @@ extern "C" {
 // rows = B * C of a [B, C, T] activation.
 int ptbxl_relu_pool_bwd(int device, const void* h, const void* g, void* dh, int rows, int T,
                         int bf16, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (rows <= 0 || T <= 0 || (long)rows * ((T + 1) / 2) > INT_MAX)
     return (int)cudaErrorInvalidValue;
@@ -99,7 +98,5 @@ int ptbxl_relu_pool_bwd(int device, const void* h, const void* g, void* dh, int 
   else launch<float>(h, g, dh, rows, T, st);
   return (int)cudaGetLastError();
 }
-
-const char* ptbxl_strerror(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 }  // extern "C"

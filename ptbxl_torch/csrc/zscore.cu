@@ -56,12 +56,11 @@
 // cluster fits, and return an error the wrapper raises on where it does not:
 // there is no other kernel to fall back to.
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 
 #include <mutex>
 #include <vector>
+
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -84,38 +83,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// -- mbarriers and bulk copies -----------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// wait for the completion of the phase with this parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
+// -- bulk stores ------------------------------------------------------------------
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
                "r"(smem_u32(src)), "r"(bytes)
@@ -129,10 +97,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 // ... and have written device memory
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// order this thread's shared-memory accesses before later bulk copies (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // How a piece of n elements of `size` bytes at `addr` is read or written:
@@ -356,7 +320,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 
   if (tid == 0) {
     for (int q = 0; q < 3; ++q) mbar_init(&bar[q], 1);  // the piece, then both inboxes
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   __syncthreads();
 
@@ -556,14 +520,6 @@ cudaError_t check_plan(const Plan& p, const Launch& l, int in_size, int out_size
   return cudaSuccess;
 }
 
-cudaError_t set_device(int device) {
-  int cur = -1;
-  cudaError_t err = cudaGetDevice(&cur);
-  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) (void)cudaGetLastError();
-  return err;
-}
-
 // Kernel attributes, once a (kernel, device): the largest dynamic shared
 // memory (a per-plan value would shrink the limit under another plan's
 // launch) and non-portable cluster sizes.  Then the occupancy question, once
@@ -660,7 +616,7 @@ extern "C" {
 // x [B, T, C] (f32, or bf16 when in_bf16) -> out [B, T, C] (bf16 when out_bf16).
 int ptbxl_zscore(int device, const void* x, void* out, int B, int T, int C, int in_bf16,
                  int out_bf16, const int* plan, void* stream) {
-  cudaError_t err = set_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   return (int)dispatch<false>(device, x, out, make_plan(B, T, C, C, plan), make_launch(plan),
                               in_bf16, out_bf16, static_cast<cudaStream_t>(stream));
@@ -669,7 +625,7 @@ int ptbxl_zscore(int device, const void* x, void* out, int B, int T, int C, int 
 // x [B, T, C] -> stats [B, C, 2] f32: (mean, sqrt(var) + 1e-6).
 int ptbxl_zscore_stats(int device, const void* x, void* stats, int B, int T, int C, int in_bf16,
                        const int* plan, void* stream) {
-  cudaError_t err = set_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   return (int)dispatch<true>(device, x, stats, make_plan(B, T, C, C, plan), make_launch(plan),
                              in_bf16, 0, static_cast<cudaStream_t>(stream));
@@ -679,13 +635,11 @@ int ptbxl_zscore_stats(int device, const void* x, void* stats, int B, int T, int
 // a cluster takes block_b records in turn (the plan's per).
 int ptbxl_zscore_wide(int device, const void* x, void* out, int B, int T, int C, int W,
                       int block_b, int in_bf16, int out_bf16, const int* plan, void* stream) {
-  cudaError_t err = set_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (block_b <= 0 || plan[2] != block_b) return (int)cudaErrorInvalidValue;
   return (int)dispatch<false>(device, x, out, make_plan(B, T, C, W, plan), make_launch(plan),
                               in_bf16, out_bf16, static_cast<cudaStream_t>(stream));
 }
-
-const char* ptbxl_strerror(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 }  // extern "C"

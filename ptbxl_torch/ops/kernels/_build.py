@@ -1,13 +1,17 @@
-"""Build and load the port's CUDA kernels (``ptbxl_torch/csrc/*.cu``).
+"""Build, load and launch the port's CUDA kernels (``ptbxl_torch/csrc/*.cu``).
 
 Each source compiles with ``nvcc`` into its own shared library with a plain C
-interface, all sources in parallel, at first use.  The libraries go to
-``build/ptbxl_torch/<hash>/`` beside the package, keyed by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one loads.
-They are bound with ``ctypes``: every pointer and the stream are
-``c_void_p``, every entry returns ``cudaGetLastError()``, and ``check``
-raises on a non-zero code.  A missing ``nvcc`` or a failed build raises;
-nothing falls back to the plain PyTorch versions.
+interface, all sources in parallel, at first use.  Every source includes
+``csrc/hopper.cuh``: the Hopper PTX helpers, the device guard
+(``ptbxl_ensure_device``) and ``ptbxl_strerror``.  ``nvcc_command`` is the one
+command line, for these libraries and for the copies and variants the tools
+build elsewhere.  The libraries go to ``build/ptbxl_torch/<hash>/`` beside
+the package, keyed by a hash of the sources (the header with them) and
+flags, so a changed source rebuilds and an unchanged one loads.  A
+``Library`` binds one with ``ctypes`` and launches its C entries: every
+entry is ``int entry(int device, ..., void* stream)`` and returns
+``cudaGetLastError()``, and a non-zero code raises.  A missing ``nvcc`` or a
+failed build raises; nothing falls back to the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -31,8 +37,6 @@ NVCC_FLAGS = (
 VOIDP = ctypes.c_void_p  # every pointer and the stream: a bare int would be cut to 32 bits
 INT = ctypes.c_int
 
-_libs: Dict[str, ctypes.CDLL] = {}  # loaded once per process
-
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
@@ -43,6 +47,13 @@ def _nvcc() -> str:
             "kernels are built from source at first use"
         )
     return path
+
+
+def nvcc_command(source: Path, output: Path) -> List[str]:
+    """``nvcc`` building ``source`` into the shared library ``output`` with the
+    port's flags; ``-I csrc`` lets a copy of a source written elsewhere find
+    ``hopper.cuh``."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(output), str(source)]
 
 
 def _key() -> str:
@@ -66,13 +77,12 @@ def build_all() -> Dict[str, Path]:
     libs = {s.stem: out_dir / f"lib{s.stem}.so" for s in sources}
     todo = [s for s in sources if not libs[s.stem].exists()]
     if todo:
-        nvcc = _nvcc()
         procs = []
         for s in todo:
             tmp = libs[s.stem].with_suffix(f".so.tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(s)]
             procs.append((s, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                nvcc_command(s, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
         failed = []
         for s, tmp, p in procs:
             log, _ = p.communicate()
@@ -86,27 +96,64 @@ def build_all() -> Dict[str, Path]:
     return libs
 
 
-def load_library(stem: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
-    """Load ``lib<stem>.so`` (building first if needed) and declare its entries.
+def raw_stream(device: int) -> int:
+    """The current CUDA stream's handle on ``device``, without building a
+    ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
-    ``signatures`` maps each C entry to its ``argtypes``; every entry returns
-    an ``int`` CUDA error code.
+
+class Library:
+    """The C entries of one kernel library, declared once beside the module
+    that owns it.
+
+    ``signatures`` maps each entry to the ctypes of its arguments between
+    the device index and the stream, which every entry takes first and last.
+    ``path`` is a library a tool built (``nvcc_command``); by default
+    ``lib<stem>.so`` from ``build_all``.  ``entries`` holds each entry once
+    it is bound (once per process), ``ptbxl_strerror`` too: the seam where
+    tests put stand-ins for the C entries.
     """
-    lib = _libs.get(stem)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all()[stem]))
-        for name, argtypes in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.ptbxl_strerror.argtypes = [ctypes.c_int]
-        lib.ptbxl_strerror.restype = ctypes.c_char_p
-        _libs[stem] = lib
-    return lib
 
+    def __init__(self, stem: str, signatures: Dict[str, Sequence],
+                 path: Optional[Path] = None):
+        self.stem, self.signatures, self.path = stem, signatures, path
+        self.entries: Dict[str, Callable] = {}
+        self._dll: Optional[ctypes.CDLL] = None
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a C entry reported a CUDA error (a refused launch never runs)."""
-    if err:
-        raise RuntimeError(f"{what}: CUDA error {err} ({lib.ptbxl_strerror(err).decode()})")
+    def entry(self, name: str) -> Callable:
+        """The C entry ``name``, loading the library (building it first if
+        needed) and declaring the entry's types on first use."""
+        fn = self.entries.get(name)
+        if fn is None:
+            if self._dll is None:
+                self._dll = ctypes.CDLL(str(self.path or build_all()[self.stem]))
+            fn = getattr(self._dll, name)
+            if name == "ptbxl_strerror":
+                fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+            else:
+                fn.argtypes, fn.restype = [INT, *self.signatures[name], VOIDP], ctypes.c_int
+            self.entries[name] = fn
+        return fn
 
+    def launch(self, name: str, *args) -> None:
+        """Call the entry ``name`` as ``(device, *args, stream)``: a tensor
+        passes its ``data_ptr()``, None a null pointer, anything else as it
+        is; the device is the first tensor's and the stream its current one.
+        A non-zero code raises, naming the entry (a refused launch never
+        runs)."""
+        device, cargs = None, []
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                if device is None:
+                    device = a.get_device()
+                a = a.data_ptr()
+            cargs.append(a)
+        if device is None or device < 0:
+            raise RuntimeError(f"{name}: the kernels need a CUDA tensor")
+        fn = self.entries.get(name)
+        if fn is None:
+            fn = self.entry(name)
+        err = fn(device, *cargs, raw_stream(device))
+        if err:
+            text = self.entry("ptbxl_strerror")(err).decode()
+            raise RuntimeError(f"{name}: CUDA error {err} ({text})")

@@ -84,17 +84,17 @@ launches_mm = 0
 conv_block_launches = 0  # 3xTF32 conv blocks launched on the card (``conv_block_tf32x3``)
 
 _I, _P = _build.INT, _build.VOIDP
-_SIGNATURES = {
-    # device, x, stats, w3, b, y, B, T, Cin, CinP, Cout, stream
-    "ptbxl_conv_block_tf32x3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # device, x, w, b, y, B, Tx, Cin, Cout, stream (pre-padded x, P3's direct layer)
-    "ptbxl_conv_block_valid": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # device, h, pw, pb, hw, hb, logits, B, T, C, F, L, stream
-    "ptbxl_tail": [_I] + [_P] * 6 + [_I] * 5 + [_P],
-    # device, h, pw, pb, fc1_w, fc1_b, fc2_w, fc2_b, film_w, film_b, hw, hb, demo, logits,
-    # B, T, C, F, D, H1, H, L, stream
-    "ptbxl_mm_tail": [_I] + [_P] * 13 + [_I] * 8 + [_P],
-}
+LIB = _build.Library("fused_ecgcnn", {
+    # x, stats, w3, b, y, B, T, Cin, CinP, Cout
+    "ptbxl_conv_block_tf32x3": [_P] * 5 + [_I] * 5,
+    # x, w, b, y, B, Tx, Cin, Cout (pre-padded x, P3's direct layer)
+    "ptbxl_conv_block_valid": [_P] * 4 + [_I] * 4,
+    # h, pw, pb, hw, hb, logits, B, T, C, F, L
+    "ptbxl_tail": [_P] * 6 + [_I] * 5,
+    # h, pw, pb, fc1_w, fc1_b, fc2_w, fc2_b, film_w, film_b, hw, hb, demo, logits,
+    # B, T, C, F, D, H1, H, L
+    "ptbxl_mm_tail": [_P] * 13 + [_I] * 8,
+})
 
 Folded = Dict[str, object]
 
@@ -340,13 +340,22 @@ def conv_block_tf32x3(x: torch.Tensor, w3: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv_block_tf32x3_plain(x, w3, b, stats)
     y = torch.empty((bsz, t // 2, cout), dtype=torch.float32, device=x.device)
-    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
-    err = lib.ptbxl_conv_block_tf32x3(
-        x.get_device(), x.data_ptr(), None if stats is None else stats.data_ptr(), w3.data_ptr(),
-        b.data_ptr(), y.data_ptr(), bsz, t, cin, cin_p, cout,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "tf32x3 conv block launch")
+    LIB.launch("ptbxl_conv_block_tf32x3", x, stats, w3, b, y, bsz, t, cin, cin_p, cout)
     conv_block_launches += 1
+    return y
+
+
+def conv_block_valid(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 FMA conv block on a pre-padded input (P3's ``direct`` layer):
+    contiguous f32 CUDA tensors x [B, T+14, Cin], w2d [15*Cin, Cout] with
+    Cout % 32 == 0 and b [Cout] -> pool(relu(conv_VALID + b)) [B, T//2, Cout]
+    f32, bf16 operands and f32 sums."""
+    bsz, tx, cin = x.shape
+    cout = w2d.shape[1]
+    if cout % 32:
+        raise ValueError(f"direct mode needs Cout % 32 == 0, got {cout}")
+    y = torch.empty((bsz, (tx - 2 * PAD) // 2, cout), dtype=torch.float32, device=x.device)
+    LIB.launch("ptbxl_conv_block_valid", x, w2d, b, y, bsz, tx, cin, cout)
     return y
 
 
@@ -401,12 +410,8 @@ def card_logits(x: torch.Tensor, folded: Folded, compute_dtype: torch.dtype,
             return (h.mean(1) @ pw + folded["proj_b"]) @ hw + folded["head_b"]
     b, num_labels = h.shape[0], hw.shape[1]
     logits = torch.empty((b, num_labels), dtype=torch.float32, device=h.device)
-    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
-    err = lib.ptbxl_tail(
-        h.get_device(), h.data_ptr(), pw.data_ptr(), folded["proj_b"].data_ptr(), hw.data_ptr(),
-        folded["head_b"].data_ptr(), logits.data_ptr(), b, h.shape[1], pw.shape[0], pw.shape[1],
-        num_labels, torch.cuda.current_stream(h.device).cuda_stream)
-    _build.check(lib, err, "tail launch")
+    LIB.launch("ptbxl_tail", h, pw, folded["proj_b"], hw, folded["head_b"], logits, b, h.shape[1],
+               pw.shape[0], pw.shape[1], num_labels)
     return logits
 
 
@@ -534,14 +539,9 @@ def card_mm_logits(x: torch.Tensor, demo: torch.Tensor, folded: Folded,
     b, t, c = h.shape
     f, d_in, h1, hid = pw.shape[1], demo.shape[1], folded["fc1_w"].shape[1], folded["fc2_w"].shape[1]
     num_labels = folded["head_b"].shape[0]
-    ptrs = [folded[f"{n}_{s}"].data_ptr() for n in ("proj", "fc1", "fc2", "film", "head")
-            for s in "wb"]
     logits = torch.empty((b, num_labels), dtype=torch.float32, device=x.device)
-    lib = _build.load_library("fused_ecgcnn", _SIGNATURES)
-    err = lib.ptbxl_mm_tail(
-        x.get_device(), h.data_ptr(), *ptrs, demo.data_ptr(), logits.data_ptr(),
-        b, t, c, f, d_in, h1, hid, num_labels, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "multimodal tail launch")
+    LIB.launch("ptbxl_mm_tail", h, *[folded[k] for k in _MM_DENSE], demo, logits,
+               b, t, c, f, d_in, h1, hid, num_labels)
     return logits
 
 

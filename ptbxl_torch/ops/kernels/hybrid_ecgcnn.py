@@ -115,17 +115,17 @@ def read_wg_tiles(text: str) -> Dict[int, Tuple[int, ...]]:
 WG_TILES = read_wg_tiles(WG_SOURCE.read_text())
 
 _I, _P = _build.INT, _build.VOIDP
-_WG_SIGNATURES = {
-    # device, x, stats, w, b, y, B, T, Cin, CinP, Cout, in_f32, sums, stream
-    "ptbxl_wgmma_conv_block": [_I] + [_P] * 5 + [_I] * 7 + [_P],
-    # device, x, w, b, y, B, Tx, Cin, CinP, Cout, channel_major, transpose_out, stream
-    "ptbxl_wgmma_conv_layer": [_I] + [_P] * 4 + [_I] * 7 + [_P],
-    # device, part, pw, pb, hw, hb, logits, B, n_tiles, T, C, F, L, stream
-    "ptbxl_sums_tail": [_I] + [_P] * 6 + [_I] * 6 + [_P],
-    # device, part, pw, pb, fc1_w, fc1_b, fc2_w, fc2_b, film_w, film_b, hw, hb, demo, logits,
-    # B, n_tiles, T, C, F, D, H1, H, L, stream
-    "ptbxl_mm_sums_tail": [_I] + [_P] * 13 + [_I] * 9 + [_P],
-}
+LIB = _build.Library("hybrid_wgmma", {
+    # x, stats, w, b, y, B, T, Cin, CinP, Cout, in_f32, sums
+    "ptbxl_wgmma_conv_block": [_P] * 5 + [_I] * 7,
+    # x, w, b, y, B, Tx, Cin, CinP, Cout, channel_major, transpose_out
+    "ptbxl_wgmma_conv_layer": [_P] * 4 + [_I] * 7,
+    # part, pw, pb, hw, hb, logits, B, n_tiles, T, C, F, L
+    "ptbxl_sums_tail": [_P] * 6 + [_I] * 6,
+    # part, pw, pb, fc1_w, fc1_b, fc2_w, fc2_b, film_w, film_b, hw, hb, demo, logits,
+    # B, n_tiles, T, C, F, D, H1, H, L
+    "ptbxl_mm_sums_tail": [_P] * 13 + [_I] * 9,
+})
 
 
 def _floor_pool(h: torch.Tensor) -> torch.Tensor:
@@ -379,12 +379,8 @@ def wgmma_conv_block(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
                         device=x.device)
     else:
         y = torch.empty((bsz, t // 2, cout), dtype=torch.bfloat16, device=x.device)
-    lib = _build.load_library("hybrid_wgmma", _WG_SIGNATURES)
-    err = lib.ptbxl_wgmma_conv_block(
-        x.get_device(), x.data_ptr(), None if stats is None else stats.data_ptr(), wp.data_ptr(),
-        b.data_ptr(), y.data_ptr(), bsz, t, cin, cin_p, cout, int(x.dtype == torch.float32),
-        int(sums), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "wgmma conv block launch")
+    LIB.launch("ptbxl_wgmma_conv_block", x, stats, wp, b, y, bsz, t, cin, cin_p, cout,
+               int(x.dtype == torch.float32), int(sums))
     return y
 
 
@@ -418,12 +414,8 @@ def sums_tail(part: torch.Tensor, t: int, folded: Folded) -> torch.Tensor:
         raise ValueError(f"proj_w must be [{c}, F], got {tuple(pw.shape)}")
     num_labels = hw.shape[1]
     logits = torch.empty((bsz, num_labels), dtype=torch.float32, device=part.device)
-    lib = _build.load_library("hybrid_wgmma", _WG_SIGNATURES)
-    err = lib.ptbxl_sums_tail(
-        part.get_device(), part.data_ptr(), pw.data_ptr(), folded["proj_b"].data_ptr(),
-        hw.data_ptr(), folded["head_b"].data_ptr(), logits.data_ptr(), bsz, n_tiles, t, c,
-        pw.shape[1], num_labels, torch.cuda.current_stream(part.device).cuda_stream)
-    _build.check(lib, err, "sums tail launch")
+    LIB.launch("ptbxl_sums_tail", part, pw, folded["proj_b"], hw, folded["head_b"], logits, bsz,
+               n_tiles, t, c, pw.shape[1], num_labels)
     return logits
 
 
@@ -455,13 +447,9 @@ def mm_sums_tail(part: torch.Tensor, t: int, folded: Folded, demo: torch.Tensor)
         if v.device != part.device or v.dtype != torch.float32 or not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous f32 on {part.device}")
     logits = torch.empty((bsz, num_labels), dtype=torch.float32, device=part.device)
-    lib = _build.load_library("hybrid_wgmma", _WG_SIGNATURES)
-    err = lib.ptbxl_mm_sums_tail(
-        part.get_device(), part.data_ptr(), *[v.data_ptr() for v in dense], demo.data_ptr(),
-        logits.data_ptr(), bsz, n_tiles, t, c, folded["proj_w"].shape[1], d_in,
-        folded["fc1_w"].shape[1], folded["fc2_w"].shape[1], num_labels,
-        torch.cuda.current_stream(part.device).cuda_stream)
-    _build.check(lib, err, "multimodal sums tail launch")
+    LIB.launch("ptbxl_mm_sums_tail", part, *dense, demo, logits, bsz, n_tiles, t, c,
+               folded["proj_w"].shape[1], d_in, folded["fc1_w"].shape[1],
+               folded["fc2_w"].shape[1], num_labels)
     return logits
 
 
@@ -572,12 +560,8 @@ def _wgmma_layer(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor, channel_maj
     half = (tx - 2 * PAD) // 2
     shape = (bsz, cout, half) if transpose_out else (bsz, half, cout)
     y = torch.empty(shape, dtype=torch.float32, device=x.device)
-    lib = _build.load_library("hybrid_wgmma", _WG_SIGNATURES)
-    err = lib.ptbxl_wgmma_conv_layer(
-        x.get_device(), x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, tx, cin,
-        cin_p, cout, int(channel_major), int(transpose_out),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "wgmma conv layer launch")
+    LIB.launch("ptbxl_wgmma_conv_layer", x, wp, b, y, bsz, tx, cin, cin_p, cout,
+               int(channel_major), int(transpose_out))
     return y
 
 
@@ -624,20 +608,10 @@ def conv_layer(x: torch.Tensor, w2d: torch.Tensor, b: torch.Tensor,
         if v.device != x.device or v.dtype != torch.float32:
             raise TypeError(f"{name} must be f32 on {x.device}, got {v.dtype} on {v.device}")
     x, w2d, b = x.contiguous(), w2d.contiguous(), b.contiguous()
-    bsz, tx, _ = x.shape
-    cout = w2d.shape[1]
-    t = tx - 2 * PAD
     if mode == "im2col":
-        y = _wgmma_layer(x, wg_weight(w2d.view(K, cin, cout)), b)
+        y = _wgmma_layer(x, wg_weight(w2d.view(K, cin, w2d.shape[1])), b)
     else:
-        if cout % 32:
-            raise ValueError(f"direct mode needs Cout % 32 == 0, got {cout}")
-        lib = _build.load_library("fused_ecgcnn", k2._SIGNATURES)
-        y = torch.empty((bsz, t // 2, cout), dtype=torch.float32, device=x.device)
-        err = lib.ptbxl_conv_block_valid(
-            x.get_device(), x.data_ptr(), w2d.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, tx,
-            cin, cout, torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(lib, err, "direct conv layer launch")
+        y = k2.conv_block_valid(x, w2d, b)
     launches_layer += 1
     return y
 

@@ -40,16 +40,16 @@ A CPU tensor takes the plain version (``*_plain``); a CUDA tensor launches
 the kernel or raises.  ``launches`` counts kernel launches on the card.
 
 The launch path (``_launch``) is most of a probe call's time, so it is kept
-short: each C entry is bound once per process (``_entry``), the current
-stream's raw handle is read without building a ``torch.cuda.Stream``, and the
-inputs' dtype, layout and device are checked in one pass; the C side sets the
-device only when it differs.  ``tools/probe_dispatch.py`` times the parts.
+short: the inputs' dtype, layout and device are checked in one pass, and
+``_build.Library`` binds each C entry once per process and passes the current
+stream's raw handle; the C side sets the device only when it differs.
+``tools/probe_dispatch.py`` times the parts.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -60,41 +60,26 @@ launches = 0
 PRECISIONS = ("tf32", "fp32")
 
 _I, _P, _L = _build.INT, _build.VOIDP, ctypes.c_longlong
-_SIGNATURES = {
-    # device, a, b, c, M, N, K, sam, sak, sbk, sbn, tf32, grid_m, grid_n, smem, stream
-    "ptbxl_probe_dot": [_I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _L, _P],
-    # device, x, out, C, T, lane shift, sublane shift, stream
-    "ptbxl_probe_roll_add": [_I, _P, _P, _I, _I, _I, _I, _P],
-    # device, x, out, C, T, KS, stream
-    "ptbxl_probe_subblock": [_I, _P, _P, _I, _I, _I, _P],
-    # device, x, y, R, W, lane, stream
-    "ptbxl_probe_pool_slices": [_I, _P, _P, _I, _I, _I, _P],
-    # device, x, y, R, W, stream
-    "ptbxl_probe_pool_rows_reshape": [_I, _P, _P, _I, _I, _P],
-    "ptbxl_probe_pool_lanes_reshape": [_I, _P, _P, _I, _I, _P],
-    # device, x, out, C, T, Wo, KS, stream
-    "ptbxl_probe_window_sum": [_I, _P, _P, _I, _I, _I, _I, _P],
-    # device, x, out, To, C, KS, stream
-    "ptbxl_probe_concat": [_I, _P, _P, _I, _I, _I, _P],
-    # device, x, out, R, W, stream
-    "ptbxl_probe_transpose": [_I, _P, _P, _I, _I, _P],
-}
-
-
-_entries: Dict[str, Callable[..., int]] = {}  # C entry name -> bound ctypes function
-
-
-def _entry(name: str) -> Callable[..., int]:
-    """The C entry ``name``, bound once per process."""
-    fn = _entries.get(name)
-    if fn is None:
-        fn = _entries[name] = getattr(_build.load_library("probes", _SIGNATURES), name)
-    return fn
-
-
-def _raw_stream(device_index: int) -> int:
-    """The current CUDA stream's handle, without building a ``torch.cuda.Stream``."""
-    return torch._C._cuda_getCurrentRawStream(device_index)
+# every entry: (device, ..., stream)
+LIB = _build.Library("probes", {
+    # a, b, c, M, N, K, sam, sak, sbk, sbn, tf32, grid_m, grid_n, smem
+    "ptbxl_probe_dot": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _L],
+    # x, out, C, T, lane shift, sublane shift
+    "ptbxl_probe_roll_add": [_P, _P, _I, _I, _I, _I],
+    # x, out, C, T, KS
+    "ptbxl_probe_subblock": [_P, _P, _I, _I, _I],
+    # x, y, R, W, lane
+    "ptbxl_probe_pool_slices": [_P, _P, _I, _I, _I],
+    # x, y, R, W
+    "ptbxl_probe_pool_rows_reshape": [_P, _P, _I, _I],
+    "ptbxl_probe_pool_lanes_reshape": [_P, _P, _I, _I],
+    # x, out, C, T, Wo, KS
+    "ptbxl_probe_window_sum": [_P, _P, _I, _I, _I, _I],
+    # x, out, To, C, KS
+    "ptbxl_probe_concat": [_P, _P, _I, _I, _I],
+    # x, out, R, W
+    "ptbxl_probe_transpose": [_P, _P, _I, _I],
+})
 
 
 def _launch(entry: str, out_shape, tensors, ints) -> torch.Tensor:
@@ -108,14 +93,8 @@ def _launch(entry: str, out_shape, tensors, ints) -> torch.Tensor:
         if v.dtype != torch.float32 or not v.is_contiguous() or v.device != dev:
             raise TypeError(f"probe inputs must be contiguous f32 on {dev}, "
                             f"got {v.dtype} {tuple(v.shape)} on {v.device}")
-    idx = tensors[0].get_device()
-    if idx < 0:
-        raise RuntimeError(f"probe kernels need a CUDA tensor, got {dev}")
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    err = _entry(entry)(idx, *[v.data_ptr() for v in tensors], out.data_ptr(), *ints,
-                        _raw_stream(idx))
-    if err:
-        _build.check(_build.load_library("probes", _SIGNATURES), err, f"{entry} launch")
+    LIB.launch(entry, *tensors, out, *ints)
     launches += 1
     return out
 

@@ -26,11 +26,10 @@ from ptbxl_torch.ops.kernels import _build
 
 launches = 0
 
-_SIGNATURES = {
-    # device, h, g, dh, rows, T, bf16, stream
-    "ptbxl_relu_pool_bwd": [_build.INT, _build.VOIDP, _build.VOIDP, _build.VOIDP,
-                            _build.INT, _build.INT, _build.INT, _build.VOIDP],
-}
+LIB = _build.Library("relu_pool", {
+    # h, g, dh, rows, T, bf16
+    "ptbxl_relu_pool_bwd": [_build.VOIDP] * 3 + [_build.INT] * 3,
+})
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_WINDOWS = 2 ** 31 - 1  # the kernel's flat window index is 32-bit
 
@@ -78,10 +77,6 @@ def relu_pool_bwd(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if h.numel() == 0:
         return dh
     b, c, t = h.shape
-    lib = _build.load_library("relu_pool", _SIGNATURES)
-    err = lib.ptbxl_relu_pool_bwd(
-        h.get_device(), h.data_ptr(), g.data_ptr(), dh.data_ptr(), b * c, t,
-        int(h.dtype == torch.bfloat16), torch.cuda.current_stream(h.device).cuda_stream)
-    _build.check(lib, err, "relu_pool_bwd launch")
+    LIB.launch("ptbxl_relu_pool_bwd", h, g, dh, b * c, t, int(h.dtype == torch.bfloat16))
     launches += 1
     return dh

@@ -52,19 +52,17 @@ from ptbxl_torch.ops.preprocess import EPS
 launches = 0
 launches_wide = 0
 
-# every entry ends with the plan (a pointer to ClusterPlan.c_args() as 11 ints)
-# and the stream
-_SIGNATURES = {
-    # device, x, out, B, T, C, in_bf16, out_bf16, plan, stream
-    "ptbxl_zscore": [_build.INT, _build.VOIDP, _build.VOIDP] + [_build.INT] * 5
-                    + [_build.VOIDP, _build.VOIDP],
-    # device, x, stats, B, T, C, in_bf16, plan, stream
-    "ptbxl_zscore_stats": [_build.INT, _build.VOIDP, _build.VOIDP] + [_build.INT] * 4
-                          + [_build.VOIDP, _build.VOIDP],
-    # device, x, out, B, T, C, W, block_b, in_bf16, out_bf16, plan, stream
-    "ptbxl_zscore_wide": [_build.INT, _build.VOIDP, _build.VOIDP] + [_build.INT] * 7
-                         + [_build.VOIDP, _build.VOIDP],
-}
+# every entry: (device, x, out, B, T, C, ..., the plan: a pointer to
+# ClusterPlan.c_args() as 10 ints, stream)
+_I, _P = _build.INT, _build.VOIDP
+LIB = _build.Library("zscore", {
+    # x, out, B, T, C, in_bf16, out_bf16, plan
+    "ptbxl_zscore": [_P, _P] + [_I] * 5 + [_P],
+    # x, stats, B, T, C, in_bf16, plan
+    "ptbxl_zscore_stats": [_P, _P] + [_I] * 4 + [_P],
+    # x, out, B, T, C, W, block_b, in_bf16, out_bf16, plan
+    "ptbxl_zscore_wide": [_P, _P] + [_I] * 7 + [_P],
+})
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -279,11 +277,6 @@ def _check_input(x: torch.Tensor) -> None:
         raise RuntimeError(f"zscore kernel needs a CUDA tensor, got {x.device}")
 
 
-def _lib():
-    lib = _build._libs.get("zscore")
-    return lib if lib is not None else _build.load_library("zscore", _SIGNATURES)
-
-
 def launch_plan(x: torch.Tensor, plan: ClusterPlan, entry: str,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch one entry of the cluster kernel with ``plan`` on a contiguous CUDA
@@ -298,20 +291,15 @@ def launch_plan(x: torch.Tensor, plan: ClusterPlan, entry: str,
     shape = (b, c, 2) if entry == "zscore_stats" else (b, t, c)
     out = torch.empty(shape, dtype=torch.float32 if entry == "zscore_stats" else out_dtype,
                       device=x.device)
-    lib = _lib()
-    idx = x.get_device()
-    head = (idx, x.data_ptr(), out.data_ptr(), b, t, c)
     in_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
-    stream = torch._C._cuda_getCurrentRawStream(idx)  # no torch.cuda.Stream built a call
     c_plan = ctypes.addressof(_c_plan(plan))
     if entry == "zscore":
-        err = lib.ptbxl_zscore(*head, in_bf16, out_bf16, c_plan, stream)
+        LIB.launch("ptbxl_zscore", x, out, b, t, c, in_bf16, out_bf16, c_plan)
     elif entry == "zscore_stats":
-        err = lib.ptbxl_zscore_stats(*head, in_bf16, c_plan, stream)
+        LIB.launch("ptbxl_zscore_stats", x, out, b, t, c, in_bf16, c_plan)
     else:
-        err = lib.ptbxl_zscore_wide(*head, plan.row, plan.per, in_bf16, out_bf16, c_plan, stream)
-    if err:
-        _build.check(lib, err, f"{entry} launch")
+        LIB.launch("ptbxl_zscore_wide", x, out, b, t, c, plan.row, plan.per, in_bf16, out_bf16,
+                   c_plan)
     if entry == "zscore_wide":
         launches_wide += 1
     else:

@@ -30,30 +30,6 @@ namespace {
 constexpr int kSM = 64, kSN = 128, kSRanks = 4, kSThreads = 128, kSSteps = 8;
 constexpr int kSSlot = 40;  // row stride of an exchange slot (floats): 64 x 32 of a quarter
 
-// d[64] += A (64 x 8 tf32, registers) * B (8 x 128 tf32, shared)
-__device__ __forceinline__ void wgmma_tf32_n128(float* d, const uint32_t* a, uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -162,10 +138,10 @@ dot_splitk_kernel(const float* __restrict__ a, const float* __restrict__ b, floa
   const uint64_t desc = b_desc(bc, 2048, 128);
   wg_fence();
 #pragma unroll
-  for (int j = 0; j < kSSteps; ++j) wgmma_tf32_n128(acc, af[j], desc + 256 * j);
+  for (int j = 0; j < kSSteps; ++j) wgmma_tf32<128, 1>(acc, af[j], desc + 256 * j);
   wg_commit();
   cluster_arrive();  // this CTA's landing rows are read: peers may write its slots
-  wg_wait0();
+  wg_wait<0>();
 #pragma unroll
   for (int i = 0; i < 64; ++i) pin(acc[i]);
 #pragma unroll
@@ -237,7 +213,7 @@ extern "C" {
 int ptbxl_probe_dot_splitk(int device, const void* a, const void* b, void* c, int M, int N,
                            int K, long long sam, long long sak, long long sbk, long long sbn,
                            long long* smem_out, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   const bool a_k = sak == 1, b_k = sbk == 1;
   const long long lda = a_k ? sam : sak, ldb = b_k ? sbn : sbk;

@@ -22,13 +22,10 @@ Then the kernel wrapper's host work split into its parts on one probe
 ``checks`` (splitting the arguments into tensors and ints and checking each
 tensor), ``empty`` (``torch.empty`` of the output), ``stream``
 (``torch.cuda.current_stream(dev).cuda_stream``) beside ``raw_stream`` (the
-raw handle, ``torch._C._cuda_getCurrentRawStream``), ``data_ptr``,
-``ctypes_noop`` (the C entry's ``ctypes`` call with a shape it refuses:
-marshalling and the entry's device check, no launch), ``ctypes_launch`` (the
-whole C entry with its launch) and ``wrapper`` (the public ``pool_reshape``).
-The parts are the same calls for any version of the launch path, so the
-tool times the parent of a change as well (``PYTHONPATH=<checkout> python
-ptbxl_torch/tools/probe_dispatch.py``).
+raw handle, ``_build.raw_stream``), ``data_ptr``, ``ctypes_noop`` (the C
+entry's ``ctypes`` call with a shape it refuses: marshalling and the entry's
+device check, no launch), ``ctypes_launch`` (the whole C entry with its
+launch) and ``wrapper`` (the public ``pool_reshape``).
 
 Prints one JSON object; ``--out`` writes it to a file as well.  Needs the
 card: the numbers are device and host times of one H100 run.
@@ -134,10 +131,9 @@ def wrapper_parts(reps: int) -> dict:
     dev = torch.device("cuda")
     x = torch.randn(2048, 64, device=dev)
     out = torch.empty(1024, 64, device=dev)
-    lib = _build.load_library("probes", kp._SIGNATURES)
-    entry = lib.ptbxl_probe_pool_rows_reshape
+    entry = kp.LIB.entry("ptbxl_probe_pool_rows_reshape")
     idx = x.get_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.raw_stream(idx)
     args = (x, 2048, 64)
 
     def checks():
@@ -150,7 +146,7 @@ def wrapper_parts(reps: int) -> dict:
         "checks": checks,
         "empty": lambda: torch.empty((1024, 64), dtype=torch.float32, device=dev),
         "stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "raw_stream": lambda: _build.raw_stream(idx),
         "data_ptr": lambda: (x.get_device(), x.data_ptr(), out.data_ptr()),
         # R=0 is refused after the entry's device check: marshalling, no launch
         "ctypes_noop": lambda: entry(idx, x.data_ptr(), out.data_ptr(), 0, 64, stream),

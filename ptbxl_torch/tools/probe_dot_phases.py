@@ -47,7 +47,7 @@ PATCHES = (
      "  if (tid == 0 && blockIdx.x * gridDim.y + blockIdx.y < kMaxCtas) rec_[0] = now_ns();\n"),
     ("  const int g = lane >> 2, t = lane & 3, r0 = warp * 16 + g;\n",
      "  if (tid == 0 && blockIdx.x * gridDim.y + blockIdx.y < kMaxCtas) rec_[4] = clock64() - c0_;\n"),
-    ("  wg_wait0();\n#pragma unroll\n  for (int i = 0; i < 16; ++i) pin(acc[i]);\n",
+    ("  wg_wait<0>();\n#pragma unroll\n  for (int i = 0; i < 16; ++i) pin(acc[i]);\n",
      "  if (tid == 0 && blockIdx.x * gridDim.y + blockIdx.y < kMaxCtas) rec_[5] = clock64() - c0_;\n"),
     ("make_float2(acc[4 * i + 2], acc[4 * i + 3]);\n  }\n",
      "  if (tid == 0 && blockIdx.x * gridDim.y + blockIdx.y < kMaxCtas) {\n"
@@ -81,23 +81,20 @@ def instrumented_source(src: str) -> str:
     return src + READER
 
 
-def build() -> ctypes.CDLL:
+def build():
+    """The instrumented probes library and its ``ptbxl_phases_read``."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     cu, lib = OUT_DIR / "probes_phases.cu", OUT_DIR / "libprobes_phases.so"
     cu.write_text(instrumented_source((_build.CSRC / "probes.cu").read_text()))
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-                          capture_output=True, text=True)
+    proc = subprocess.run(_build.nvcc_command(cu, lib), capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {cu}:\n{proc.stdout}{proc.stderr}")
-    so = ctypes.CDLL(str(lib))
-    so.ptbxl_probe_dot.argtypes = kp._SIGNATURES["ptbxl_probe_dot"]
-    so.ptbxl_probe_dot.restype = ctypes.c_int
-    so.ptbxl_phases_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    so.ptbxl_phases_read.restype = ctypes.c_int
-    return so
+    read = ctypes.CDLL(str(lib)).ptbxl_phases_read
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    return _build.Library("probes_phases", kp.LIB.signatures, lib), read
 
 
-def phases(so: ctypes.CDLL, form: str, reps: int) -> Dict[str, object]:
+def phases(so: _build.Library, read, form: str, reps: int) -> Dict[str, object]:
     from ptbxl_torch.tools.probe_mosaic import normal
 
     dev = torch.device("cuda")
@@ -109,14 +106,11 @@ def phases(so: ctypes.CDLL, form: str, reps: int) -> Dict[str, object]:
     plan = kp.dot_plan(m, n, k, form == "nt", form == "nt")
     c = torch.empty(m, n, device=dev)
     for _ in range(reps):  # the last run's records are read
-        err = so.ptbxl_probe_dot(0, a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *strides,
-                                 1, *plan.grid, plan.smem_bytes, kp._raw_stream(0))
-        if err:
-            raise RuntimeError(f"instrumented dot: CUDA error {err}")
+        so.launch("ptbxl_probe_dot", a, b, c, m, n, k, *strides, 1, *plan.grid, plan.smem_bytes)
     torch.cuda.synchronize()
     want = kp.tn_dot_plain(a, b) if form == "tn" else kp.nt_dot_plain(a, b)
     buf = (ctypes.c_ulonglong * (plan.ctas * SLOTS))()
-    if so.ptbxl_phases_read(ctypes.cast(buf, ctypes.c_void_p), plan.ctas):
+    if read(ctypes.cast(buf, ctypes.c_void_p), plan.ctas):
         raise RuntimeError("reading the phase records failed")
     rows = [list(buf[i * SLOTS:(i + 1) * SLOTS]) for i in range(plan.ctas)]
     t0 = min(r[0] for r in rows)
@@ -136,9 +130,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_dot_phases: needs a CUDA GPU", file=sys.stderr)
         return 2
-    so = build()
+    so, read = build()
     result = {"device": torch.cuda.get_device_name(0),
-              "p1": phases(so, "tn", args.reps), "p2": phases(so, "nt", args.reps)}
+              "p1": phases(so, read, "tn", args.reps), "p2": phases(so, read, "nt", args.reps)}
     print(json.dumps(result), flush=True)
     return 0
 

@@ -35,21 +35,21 @@ OUT_DIR = _build.BUILD_DIR / "tune_dot"
 _P, _I, _L = _build.VOIDP, _build.INT, ctypes.c_longlong
 
 
-def build() -> ctypes.CDLL:
+def build():
+    """The variant's library (``ptbxl_probe_dot_splitk``) and its
+    ``ptbxl_probe_dot_splitk_clusters``, which takes no device or stream."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lib = OUT_DIR / "libdot_splitk.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(SOURCE)],
-                          capture_output=True, text=True)
+    proc = subprocess.run(_build.nvcc_command(SOURCE, lib), capture_output=True, text=True)
     (OUT_DIR / "libdot_splitk.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    so = ctypes.CDLL(str(lib))
-    so.ptbxl_probe_dot_splitk.argtypes = [_I, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
-                                          ctypes.POINTER(_L), _P]
-    so.ptbxl_probe_dot_splitk.restype = ctypes.c_int
-    so.ptbxl_probe_dot_splitk_clusters.argtypes = [_I, _I, _L, ctypes.POINTER(_I)]
-    so.ptbxl_probe_dot_splitk_clusters.restype = ctypes.c_int
-    return so
+    clusters = ctypes.CDLL(str(lib)).ptbxl_probe_dot_splitk_clusters
+    clusters.argtypes, clusters.restype = [_I, _I, _L, ctypes.POINTER(_I)], ctypes.c_int
+    # a, b, c, M, N, K, sam, sak, sbk, sbn, the shared bytes out
+    return _build.Library("dot_splitk", {
+        "ptbxl_probe_dot_splitk": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, ctypes.POINTER(_L)]},
+        lib), clusters
 
 
 def main(argv=None) -> int:
@@ -60,7 +60,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("tune_dot: needs a CUDA GPU", file=sys.stderr)
         return 2
-    so = build()
+    so, clusters_of = build()
     dev = torch.device("cuda")
     m, n, k = 2048, 128, 256
     forms = {
@@ -78,16 +78,14 @@ def main(argv=None) -> int:
             smem = _L(0)
 
             def variant(a=a, b=b, c=c, strides=strides, smem=smem):
-                err = so.ptbxl_probe_dot_splitk(0, a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
-                                                k, *strides, ctypes.byref(smem), kp._raw_stream(0))
-                if err:
-                    raise RuntimeError(f"split-K dot: CUDA error {err}")
+                so.launch("ptbxl_probe_dot_splitk", a, b, c, m, n, k, *strides,
+                          ctypes.byref(smem))
                 return c
 
             err = float((variant() - plain(a, b)).abs().max())
             clusters = _I(0)
-            so.ptbxl_probe_dot_splitk_clusters(int(strides[1] == 1), int(strides[2] == 1),
-                                               smem.value, ctypes.byref(clusters))
+            clusters_of(int(strides[1] == 1), int(strides[2] == 1), smem.value,
+                        ctypes.byref(clusters))
             row = {"max_abs_err": err, "tol": tol(a, b), "smem_bytes": smem.value,
                    "clusters_at_once": clusters.value, "shipped_us": [], "variant_us": []}
             ok &= err <= row["tol"]

@@ -5,8 +5,9 @@
 The tile of each block (output channels a tile BN, m64 tiles a consumer
 warpgroup RM, CTAs an SM, k16 steps a weight stage) is one row of
 ``PTBXL_WG_TILES`` in ``ptbxl_torch/csrc/hybrid_wgmma.cu``.  Each variant
-below is a copy of that source with one row changed, built with the port's
-``nvcc`` flags under ``build/ptbxl_torch/tune/``, all variants in parallel
+below is a copy of that source with one row changed, built by the port's
+``nvcc`` command (``_build.nvcc_command``) under ``build/ptbxl_torch/tune/``,
+all variants in parallel
 (only its conv block is timed).
 For each block of the baseline checkpoint, on B raw-like records (block 0:
 the raw f32 record with ``zscore_stats``; blocks 1-3: random bf16 inputs of
@@ -30,7 +31,6 @@ fusion (PERF.md).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
 import statistics
@@ -58,10 +58,10 @@ PAIRS = 10  # fused / launches timings in turns, for each fusion and batch
 TUNE_DIR = _build.BUILD_DIR / "tune"
 FUSIONS = Path(__file__).resolve().with_name("wgmma_fusions.cu")
 _FUSION_SIGNATURES = {
-    # device, x, stats, w0, b0, w1, b1, y, B, T, Cin, stream
-    "ptbxl_wgmma_front": [_build.INT] + [_build.VOIDP] * 7 + [_build.INT] * 3 + [_build.VOIDP],
-    # device, x2, w2, b2, w3, b3, y, B, T2, stream
-    "ptbxl_wgmma_deep": [_build.INT] + [_build.VOIDP] * 6 + [_build.INT] * 2 + [_build.VOIDP],
+    # x, stats, w0, b0, w1, b1, y, B, T, Cin
+    "ptbxl_wgmma_front": [_build.VOIDP] * 7 + [_build.INT] * 3,
+    # x2, w2, b2, w3, b3, y, B, T2
+    "ptbxl_wgmma_deep": [_build.VOIDP] * 6 + [_build.INT] * 2,
 }
 
 
@@ -102,9 +102,8 @@ def start_builds(text: str) -> dict:
     """One ``nvcc`` a variant that differs from the shipped tile, and one for
     the fusions, all started at once."""
     TUNE_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
     procs = {"fusions": subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-o", str(TUNE_DIR / "libfusions.so"), str(FUSIONS)],
+        _build.nvcc_command(FUSIONS, TUNE_DIR / "libfusions.so"),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
     for cin_p, rows in VARIANTS.items():
         for row in rows:
@@ -114,21 +113,9 @@ def start_builds(text: str) -> dict:
             src = TUNE_DIR / f"{name}.cu"
             src.write_text(variant_source(text, cin_p, row))
             procs[name] = subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, "-o", str(TUNE_DIR / f"lib{name}.so"), str(src)],
+                _build.nvcc_command(src, TUNE_DIR / f"lib{name}.so"),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return procs
-
-
-def _bind(path: Path, signatures: dict):
-    """A built library with its entries declared."""
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.ptbxl_strerror.argtypes = [ctypes.c_int]
-    lib.ptbxl_strerror.restype = ctypes.c_char_p
-    return lib
 
 
 def _compare(got: torch.Tensor, want: torch.Tensor, sums: bool) -> float:
@@ -154,7 +141,6 @@ def run(batch: int, iters: int) -> dict:
     clock = bench.Clock(dev)
     state, _ = load_checkpoint(bench.CKPT)
     folded = k2.fold_bn_into_conv({k: v.to(dev) for k, v in state.items()})
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rows, best = [], {}
     with torch.no_grad():
         x = bench._random_batch(batch, torch.float32, dev)
@@ -182,18 +168,15 @@ def run(batch: int, iters: int) -> dict:
                 if rc:
                     row["build_error"] = log[-2000:]
                 else:
-                    lib = _bind(TUNE_DIR / f"lib{name}.so", k4._WG_SIGNATURES)
-                    fn, bm = lib.ptbxl_wgmma_conv_block, 128 * tile[2]
+                    lib = _build.Library(name, k4.LIB.signatures, TUNE_DIR / f"lib{name}.so")
+                    bm = 128 * tile[2]
                     wv = k4.wg_weight(w, bn=tile[1])
                     y = (torch.empty((batch, -(-2 * (t // 2) // bm), cout), dtype=torch.float32,
                                      device=dev) if sums else torch.empty_like(ref))
 
                     def launch():
-                        err = fn(torch.cuda.current_device(), h.data_ptr(),
-                                 None if st is None else st.data_ptr(), wv.data_ptr(),
-                                 b.data_ptr(), y.data_ptr(), batch, t, h.shape[2], cin_p, cout,
-                                 int(i == 0), int(sums), stream)
-                        _build.check(lib, err, f"variant {name}")
+                        lib.launch("ptbxl_wgmma_conv_block", h, st, wv, b, y, batch, t,
+                                   h.shape[2], cin_p, cout, int(i == 0), int(sums))
                     launch()
                     row["max_abs_diff"] = _compare(y, ref, sums)
                     row["ms"] = clock.ms(launch, iters)
@@ -206,7 +189,7 @@ def run(batch: int, iters: int) -> dict:
         rc, log = built["fusions"]
         if rc:
             raise RuntimeError(f"nvcc failed for {FUSIONS.name}:\n{log}")
-        fused = _bind(TUNE_DIR / "libfusions.so", _FUSION_SIGNATURES)
+        fused = _build.Library("fusions", _FUSION_SIGNATURES, TUNE_DIR / "libfusions.so")
         regs = {"blocks 0+1": ptxas(log, "wgmma_front_kernel"),
                 "blocks 2+3": ptxas(log, "wgmma_deep_kernel")}
         for bsz in dict.fromkeys((batch, 512)):
@@ -235,7 +218,6 @@ def fusion_rows(lib, folded, bsz: int, clock, iters: int) -> list:
     from ptbxl_torch.ops.kernels.zscore import zscore_stats
 
     dev = torch.device("cuda")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     wp = [k4.wg_weight(folded[f"w{i}"]) for i in range(4)]
     b = [folded[f"b{i}"] for i in range(4)]
     x = bench._random_batch(bsz, torch.float32, dev)
@@ -243,11 +225,8 @@ def fusion_rows(lib, folded, bsz: int, clock, iters: int) -> list:
     y01 = torch.empty((bsz, 1250, 64), dtype=torch.bfloat16, device=dev)
 
     def front():
-        err = lib.ptbxl_wgmma_front(torch.cuda.current_device(), x.data_ptr(), st.data_ptr(),
-                                    wp[0].data_ptr(), b[0].data_ptr(), wp[1].data_ptr(),
-                                    b[1].data_ptr(), y01.data_ptr(), bsz, x.shape[1], x.shape[2],
-                                    stream)
-        _build.check(lib, err, "fused blocks 0 and 1")
+        lib.launch("ptbxl_wgmma_front", x, st, wp[0], b[0], wp[1], b[1], y01, bsz, x.shape[1],
+                   x.shape[2])
 
     def front_launches():
         return k4.wgmma_conv_block(k4.wgmma_conv_block(x, wp[0], b[0], st), wp[1], b[1])
@@ -259,10 +238,7 @@ def fusion_rows(lib, folded, bsz: int, clock, iters: int) -> list:
     def fused_deep(h2):  # blocks 2 and 3 in one launch -> block 3's per-tile sums
         y = torch.empty((bsz, -(-2 * (h2.shape[1] // 4) // 128), 256), dtype=torch.float32,
                         device=dev)
-        err = lib.ptbxl_wgmma_deep(torch.cuda.current_device(), h2.data_ptr(), wp[2].data_ptr(),
-                                   b[2].data_ptr(), wp[3].data_ptr(), b[3].data_ptr(),
-                                   y.data_ptr(), bsz, h2.shape[1], stream)
-        _build.check(lib, err, "fused blocks 2 and 3")
+        lib.launch("ptbxl_wgmma_deep", h2, wp[2], b[2], wp[3], b[3], y, bsz, h2.shape[1])
         return y
 
     x2 = torch.randn(bsz, 1250, 64, device=dev).to(torch.bfloat16)

@@ -110,7 +110,7 @@ wgmma_front_kernel(const float* __restrict__ x, const float* __restrict__ stats,
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < S0::NSTAGE + S1::NSTAGE; ++s) mbar_init(&full0[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   __syncthreads();
   if (tid >= kConsumers) {  // the producer: both blocks' weights, once
@@ -142,10 +142,11 @@ wgmma_front_kernel(const float* __restrict__ x, const float* __restrict__ stats,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int rec = tile / row_tiles, t0 = (tile % row_tiles) * kBM1;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    consumer_sync();  // the raw rows have landed; every consumer is done with the last tile
+    // the raw rows have landed; every consumer is done with the last tile
+    consumer_sync<kConsumers>();
     zscore_rows<16, S0::XS>(raw, xs0, kRows0, 2 * (t0 - kPad) - kPad, T, Cin,
                             stats ? stats + (size_t)rec * Cin * 2 : nullptr, tid);
-    consumer_sync();
+    consumer_sync<kConsumers>();
     const int next = tile + gridDim.x;
     if (next < n_tiles) {
       const int nrec = next / row_tiles, nt0 = (next % row_tiles) * kBM1;
@@ -157,7 +158,7 @@ wgmma_front_kernel(const float* __restrict__ x, const float* __restrict__ stats,
       front_block0<3>(xs0, w0s, full0, b0, xs1, 0, t0 - kPad, T1);
     else
       front_block0<2>(xs0, w0s, full0, b0, xs1, 192, t0 - kPad, T1);
-    consumer_sync();  // block 1's input tile is complete
+    consumer_sync<kConsumers>();  // block 1's input tile is complete
 
     float acc[1][S1::NACC];
 #pragma unroll
@@ -325,7 +326,7 @@ wgmma_deep_kernel(const __nv_bfloat16* __restrict__ x2, const __nv_bfloat16* __r
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   __syncthreads();
   if (tid >= kConsumers) {  // the producer: each tile's stages, block 2's two passes then block 3
@@ -376,7 +377,8 @@ wgmma_deep_kernel(const __nv_bfloat16* __restrict__ x2, const __nv_bfloat16* __r
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int rec = tile / row_tiles, rt = tile % row_tiles, t0 = rt * kBM3;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    consumer_sync();  // block 2's rows have landed; every consumer is done with the last tile
+    // block 2's rows have landed; every consumer is done with the last tile
+    consumer_sync<kConsumers>();
 #pragma unroll 1
     for (int pass = 0; pass < 2; ++pass) {
       if (wg == 0)
@@ -384,7 +386,7 @@ wgmma_deep_kernel(const __nv_bfloat16* __restrict__ x2, const __nv_bfloat16* __r
       else
         deep_block2<2>(xs2, ring, full, empty, g, b2, xs3, pass, 192, t0 - kPad, half2);
     }
-    consumer_sync();  // block 3's input tile is complete; block 2's rows are free
+    consumer_sync<kConsumers>();  // block 3's input tile is complete; block 2's rows are free
     const int next = tile + gridDim.x;
     if (next < n_tiles) {
       const int nrec = next / row_tiles, nt0 = (next % row_tiles) * kBM3;
@@ -428,7 +430,7 @@ wgmma_deep_kernel(const __nv_bfloat16* __restrict__ x2, const __nv_bfloat16* __r
         red[cw * 256 + col + 1] = s1;
       }
     }
-    consumer_sync();
+    consumer_sync<kConsumers>();
     float* yt = y + ((size_t)rec * row_tiles + rt) * 256;
     for (int n = tid; n < 256; n += kConsumers) {
       float sum = 0.f;
@@ -449,7 +451,7 @@ extern "C" {
 int ptbxl_wgmma_front(int device, const void* x, const void* stats, const void* w0, const void* b0,
                       const void* w1, const void* b1, void* y, int B, int T, int Cin,
                       void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T < 4 || Cin <= 0 || Cin > 16 || Cin % 4) return (int)cudaErrorInvalidValue;
   auto kernel = wgmma_front_kernel<1>;
@@ -478,7 +480,7 @@ int ptbxl_wgmma_front(int device, const void* x, const void* stats, const void* 
 // per-tile channel sums, as the standalone block 3 writes them.
 int ptbxl_wgmma_deep(int device, const void* x2, const void* w2, const void* b2, const void* w3,
                      const void* b3, void* y, int B, int T2, void* stream) {
-  cudaError_t err = ensure_device(device);
+  cudaError_t err = ptbxl_ensure_device(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || T2 < 4 || !deep::kTableFits) return (int)cudaErrorInvalidValue;
   if ((err = cudaFuncSetAttribute(wgmma_deep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from ptbxl_torch.ops.kernels import _build  # noqa: E402
 from ptbxl_torch.ops.kernels import probes as kp  # noqa: E402
 from ptbxl_torch.tools import probe_mosaic  # noqa: E402
 from tests.torch_port_common import HERE  # noqa: E402
@@ -83,11 +84,12 @@ def test_misaligned_operand_raises_before_any_launch():
 def test_dot_hands_its_plan_to_the_entry(monkeypatch, precision):
     """The entry gets (device, a, b, c, M, N, K, strides, tf32, grid_m, grid_n,
     smem, stream): the TF32 plan, or zeros for p9's FP32 path, which keeps
-    its own rules.  Device index and entry are stand-ins (no card)."""
+    its own rules.  Device index, entry and stream are stand-ins (no card), put
+    in at the launcher's seam (``_build.Library.entries``, ``_build.raw_stream``)."""
     calls = []
     monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 0)
-    monkeypatch.setattr(kp, "_raw_stream", lambda idx: 99)
-    monkeypatch.setattr(kp, "_entries", {"ptbxl_probe_dot": lambda *a: calls.append(a) or 0})
+    monkeypatch.setattr(_build, "raw_stream", lambda idx: 99)
+    monkeypatch.setattr(kp.LIB, "entries", {"ptbxl_probe_dot": lambda *a: calls.append(a) or 0})
     m, n, k = PROBE_MNK
     a, b, strides = _operands("tn", m, n, k)
     before = kp.launches
@@ -180,14 +182,13 @@ def test_gate_cases_on_the_host():
 def test_phase_probe_instruments_the_shipped_kernel():
     """tools/probe_dot_phases.py patches a copy of probes.cu at anchors in the
     TF32 dot's kernel: each must be there once, or the tool refuses."""
-    from ptbxl_torch.ops.kernels import _build
     from ptbxl_torch.tools import probe_dot_phases
 
     src = (_build.CSRC / "probes.cu").read_text()
     out = probe_dot_phases.instrumented_source(src)
     assert out.count("clock64() - c0_") == 3 and "ptbxl_phases_read" in out
     with pytest.raises(ValueError, match="anchor"):
-        probe_dot_phases.instrumented_source(src.replace("  wg_wait0();\n#pragma unroll\n", ""))
+        probe_dot_phases.instrumented_source(src.replace("  wg_wait<0>();\n#pragma unroll\n", ""))
 
 
 @pytest.mark.parametrize("tool", ["tune_dot", "probe_dot_phases"])

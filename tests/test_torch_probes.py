@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from ptbxl_torch.ops.kernels import _build  # noqa: E402
 from ptbxl_torch.ops.kernels import hybrid_ecgcnn as k4  # noqa: E402
 from ptbxl_torch.ops.kernels import probes as kp  # noqa: E402
 from ptbxl_torch.tools import probe_mosaic, probe_mosaic2, probe_sublane_conv  # noqa: E402
@@ -186,13 +187,41 @@ def test_launch_path_checks_in_one_pass(case):
 def test_launch_path_counts_launches(monkeypatch):
     """One count a launch; the entry gets (device, inputs..., out, ints...,
     stream) with the entry bound once and the raw stream handle.  The device
-    index and the C entry are stand-ins here (no card)."""
+    index, the C entry and the stream are stand-ins here (no card), put in
+    at the launcher's seam (``_build.Library.entries``, ``_build.raw_stream``)."""
     calls = []
     monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 0)
-    monkeypatch.setattr(kp, "_raw_stream", lambda idx: 1234)
-    monkeypatch.setattr(kp, "_entries", {"ptbxl_probe_roll_add": lambda *a: calls.append(a) or 0})
+    monkeypatch.setattr(_build, "raw_stream", lambda idx: 1234)
+    monkeypatch.setattr(kp.LIB, "entries",
+                        {"ptbxl_probe_roll_add": lambda *a: calls.append(a) or 0})
     x = torch.zeros(8, 16)
     before = kp.launches
     out = kp._launch("ptbxl_probe_roll_add", (8, 16), (x,), (8, 16, -5, 3))
     assert kp.launches == before + 1 and out.shape == (8, 16)
     assert calls == [(0, x.data_ptr(), out.data_ptr(), 8, 16, -5, 3, 1234)]
+
+
+def test_launcher_hands_the_entry_device_pointers_ints_and_stream(monkeypatch):
+    """The one launcher under every kernel module (``_build.Library.launch``):
+    the entry gets (device of the first tensor, a pointer a tensor and null
+    for None in order, the ints as they are, the current stream), a call
+    without a CUDA tensor raises before the entry is bound, and a non-zero
+    code raises naming the entry and ``ptbxl_strerror``'s text.  The entries,
+    device indices and stream are stand-ins (no card)."""
+    calls = []
+    lib = _build.Library("stand_in", {"ptbxl_stand_in": []})
+    lib.entries = {"ptbxl_stand_in": lambda *a: calls.append(a) or 0,
+                   "ptbxl_strerror": lambda err: b"an error text"}
+    x, y = torch.zeros(4), torch.zeros(2)
+    monkeypatch.setattr(_build, "raw_stream", lambda idx: 1000 + idx)
+    with pytest.raises(RuntimeError, match="ptbxl_stand_in: the kernels need a CUDA tensor"):
+        lib.launch("ptbxl_stand_in", x, None, y, 7)
+    assert calls == []
+    monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 3 if self is x else 5)
+    lib.launch("ptbxl_stand_in", x, None, y, 7, -2)
+    lib.launch("ptbxl_stand_in", None, y, x, 1)
+    assert calls == [(3, x.data_ptr(), None, y.data_ptr(), 7, -2, 1003),
+                     (5, None, y.data_ptr(), x.data_ptr(), 1, 1005)]
+    lib.entries["ptbxl_stand_in"] = lambda *a: 700
+    with pytest.raises(RuntimeError, match=r"ptbxl_stand_in: CUDA error 700 \(an error text\)"):
+        lib.launch("ptbxl_stand_in", x, 1)

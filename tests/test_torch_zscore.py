@@ -4,6 +4,8 @@ On the CPU the kernel wrapper runs its plain version; the CUDA kernel itself
 is held against that plain version on the card by chip_smoke.py.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -116,3 +118,44 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+def _defined_names(src: str) -> set:
+    """The functions (a name, its parameters, a body) and structs a CUDA
+    source defines."""
+    funcs = re.findall(r'^\s*(?:extern\s+"C"\s+)?(?:template\s*<[^>]*>\s*)?(?:[\w:<>]+[\s*&]+)+'
+                       r'(\w+)\s*\([^;{}]*\)\s*\{', src, re.M)
+    return set(funcs) | set(re.findall(r"^\s*struct\s+(\w+)", src, re.M))
+
+
+def test_every_kernel_source_takes_the_helpers_from_the_header():
+    """Each ``csrc/*.cu`` includes ``hopper.cuh`` and defines none of its
+    names (the PTX helpers, the device guard, ``ptbxl_strerror``), and no
+    source but the header sets the device."""
+    header = (_build.CSRC / "hopper.cuh").read_text()
+    names = _defined_names(header)
+    assert {"mbar_wait", "bulk_load", "wg_wait", "WgmmaTf32", "ptbxl_ensure_device",
+            "ptbxl_strerror"} <= names
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    assert {s.stem for s in sources} == {"fused_ecgcnn", "hybrid_wgmma", "probes", "relu_pool",
+                                         "zscore"}
+    for s in sources:
+        src = s.read_text()
+        assert '#include "hopper.cuh"' in src, s.name
+        assert not _defined_names(src) & names, (s.name, _defined_names(src) & names)
+        assert "cudaSetDevice" not in src, s.name
+
+
+def test_build_key_follows_the_header(tmp_path, monkeypatch):
+    """A change to the header alone gives every library a new build key, so
+    each source is rebuilt against it; an unchanged tree keeps its key."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.glob("*.cu*"):
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    key = _build._key()
+    assert _build._key() == key
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// one more line\n")
+    assert _build._key() != key
