@@ -54,7 +54,10 @@ outputs, the demo-pack parity gate, the JAX scripts' CSV schemas, ``Predictor``,
 train step and the epoch beside their plain versions, the framework (cuDNN,
 torch's own pool backward) path and their bounds; the crossover sweeps give
 ``Predictor``'s two engine limits, f32 and bf16, and fail below the shipped ones.  The launch counters are set
-to 0 just before each main path and read just after it.  Each phase prints one
+to 0 just before each main path and read just after it; K6 on the training
+paths is counted on the device trace (``traced``), since a train step
+replayed from a CUDA graph launches it from the card, not through its
+wrapper.  Each phase prints one
 JSON line; any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero and
 prints no result.  Imports nothing of JAX or ptbxl_tpu.
@@ -89,6 +92,7 @@ CLASSES = ["MI", "STTC", "HYP", "CD", "NORM"]
 # the training path: configs/ecg_baseline.yaml's batch, lr and weight decay
 TRAIN_B, TRAIN_LR, TRAIN_WD, TRAIN_EPOCHS = 64, 1.5e-3, 1e-4, 2
 TRAIN_N, VAL_N = 256, 64
+K6_KERNEL = "relu_pool_bwd"  # K6's kernel on the device trace (relu_pool_bwd_kernel<...>)
 TRAIN_B_BIG = 256  # the second train-step timing batch
 EPOCH_N, VAL_EPOCH_N = 2048, 512  # the timed epoch: 32 steps at B=64; 8 val batches
 # the reference's metrics CSV header (ptbxl_tpu/utils/csv_log.py:14-25)
@@ -232,6 +236,28 @@ def launch_breakdown(fn, attempts: int = 3) -> list:
             return [[e.name[:60], e.device_time_total / 1e3] for e in events[marks[-1] + 1:]]
     raise AssertionError(f"launch_breakdown: no marker kernel and launches after it "
                          f"in {attempts} profiled windows")
+
+
+def traced(fn) -> tuple:
+    """(fn's result, K6's launches on the device trace over ``fn``).
+
+    CUDA activity alone, after a discarded warm-up cycle (the profiler can
+    miss the first launches of a window); the card is synchronised before
+    the window closes.  A CUDA graph's kernel nodes are on the trace at
+    every replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        prof.step()
+        out = fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and K6_KERNEL in e.name)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple:
@@ -380,17 +406,16 @@ def phase_train(seed: int, gen: torch.Generator) -> dict:
                        ckpt_path=os.path.join(out, "ckpts", "best.npz"),
                        config_path="chip_smoke.py", classes=CLASSES, progress=progress,
                        train_desc=None, eval_desc=None)
-        k1.launches = k2.launches = k2.launches_mm = k6.launches = 0
+        k1.launches = k2.launches = k2.launches_mm = 0
         t0 = time.time()
-        state = train(run)
-        torch.cuda.synchronize()
-        info["wall_s"] = time.time() - t0
-        info["launches"] = {"relu_pool_bwd": k6.launches, "zscore": k1.launches,
+        state, k6_traced = traced(lambda: train(run))
+        info["wall_s"] = time.time() - t0  # under the profiler
+        info["launches"] = {"relu_pool_bwd": k6_traced, "zscore": k1.launches,
                             "fused_ecgcnn": k2.launches, "fused_multimodal": k2.launches_mm}
         info["steps"] = state.step
-        if k6.launches != 4 * state.step or state.step != TRAIN_EPOCHS * (TRAIN_N // TRAIN_B):
-            raise AssertionError(f"train path: {k6.launches} relu_pool_bwd launches for "
-                                 f"{state.step} steps (want 4 a step)")
+        if k6_traced != 4 * state.step or state.step != TRAIN_EPOCHS * (TRAIN_N // TRAIN_B):
+            raise AssertionError(f"train path: {k6_traced} relu_pool_bwd launches on the trace "
+                                 f"for {state.step} steps (want 4 a step)")
         with open(run.metrics_csv) as f:
             rows = list(csv.reader(f))
         if rows[0] != CSV_HEADER or len(rows) != 1 + TRAIN_EPOCHS:
@@ -585,7 +610,6 @@ def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -
 
     from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
     from ptbxl_torch.models.factory import build_ecgcnn
-    from ptbxl_torch.ops.kernels import relu_pool as k6
     from ptbxl_torch.training.loop import eval_one_epoch, make_eval_step, make_train_step
     from ptbxl_torch.training.loop import train_one_epoch
     from ptbxl_torch.training.train_state import create_train_state
@@ -606,11 +630,9 @@ def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -
 
     epoch(0)  # warm-up: cuDNN plans, the pinned-memory cache, the kernels' build
     torch.cuda.synchronize()
-    k6.launches = 0
     t0 = time.perf_counter()
     loss = epoch(1)
     wall_s = time.perf_counter() - t0
-    launches = k6.launches
     t0 = time.perf_counter()
     for _ in src.epoch(2):  # the producer's host work alone (get_raw, stack, transpose;
         pass                # or the int16 row gather from the ADC cache)
@@ -621,6 +643,7 @@ def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -
         torch.cuda.synchronize()
         prof_wall_s = time.perf_counter() - t0
     busy_ms = _busy_ms(prof)
+    _, launches = traced(lambda: epoch(5))  # K6 on the card over a whole epoch
     batch = next(iter(device_prefetch(src.epoch(4))))
     step_ms = time_ms(lambda: step(st, batch))
 
@@ -644,7 +667,8 @@ def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -
 
     steps = src.steps_per_epoch
     if launches != 4 * steps or not np.isfinite(loss):
-        raise AssertionError(f"timed epoch: loss {loss}, {launches} K6 launches, {steps} steps")
+        raise AssertionError(f"timed epoch: loss {loss}, {launches} K6 launches on the trace of "
+                             f"an epoch of {steps} steps")
     return {"phase": phase, "records": len(ds), "batch": TRAIN_B, "steps": steps,
             "reader": src.reader, "emit_adc": src.emit_adc,
             "precision": "highest", "dataset_make_s": make_s, "train_bce": loss,
@@ -670,7 +694,7 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
     normal input), and two epochs from equal seeds: the max |diff| of the head
     weights is reported (0 since the step pins cuDNN's deterministic
     algorithms; the ``determinism`` phase gates it).
-    K6's launches are counted from 0 over the phase."""
+    K6's launches are counted on the trace of the three steps: four a step."""
     import io
     import re
     import tempfile
@@ -678,7 +702,6 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
     from ptbxl_torch.data.pipeline import BatchSource, device_prefetch
     from ptbxl_torch.models.factory import build_ecgcnn
     from ptbxl_torch.ops import signal
-    from ptbxl_torch.ops.kernels import relu_pool as k6
     from ptbxl_torch.training.loop import make_train_step, train_one_epoch
     from ptbxl_torch.training.train_state import create_train_state
     from ptbxl_torch.utils.profiling import trace
@@ -687,7 +710,6 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
     src = BatchSource(ds, TRAIN_B, shuffle=True, seed=seed)
     half = BatchSource(RawECGSet(EXTRAS_N // 2, seed + 6), TRAIN_B, shuffle=True, seed=seed)
     step = make_train_step()
-    k6.launches = 0
 
     def fresh():
         return create_train_state(build_ecgcnn(num_labels=5, seed=seed), TRAIN_LR, TRAIN_WD)
@@ -721,8 +743,13 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
             raise AssertionError(f"trace wrote no trace file: {os.listdir(tdir)}")
         with open(files[0]) as f:
             events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
         trace_info = {"files": len(files), "bytes": os.path.getsize(files[0]),
-                      "kernel_events": sum(1 for e in events if e.get("cat") == "kernel")}
+                      "kernel_events": len(kernels),
+                      "relu_pool_bwd": sum(K6_KERNEL in name for name in kernels)}
+        if trace_info["relu_pool_bwd"] != 4 * 3:
+            raise AssertionError(f"trace of three steps: {trace_info['relu_pool_bwd']} K6 "
+                                 f"launches on the card")
 
     checked = make_train_step(check_numerics=True)
     step_ms = time_ms(lambda: step(st, batch))
@@ -768,7 +795,7 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
             "equal_seed": {"records": EXTRAS_N // 2, "head_weight_max_abs_diff":
                            float((heads[0] - heads[1]).abs().max()),
                            "losses": losses, "loss_abs_diff": abs(losses[0] - losses[1])},
-            "launches": {"relu_pool_bwd": k6.launches}}
+            "launches": {"relu_pool_bwd": trace_info["relu_pool_bwd"]}}
 
 
 def _fit_tree(tree: str, out: str, seed: int) -> None:
@@ -1429,24 +1456,20 @@ def _run_cli(main, argv) -> tuple:
 
 def phase_cli_train(root: str, work: str, seed: int, datasets: tuple) -> dict:
     """CLIs 03, 04 and 05 on the tree at full width, batch 64: 03 for two
-    epochs (K6 launches counted from 0), its CSV, checkpoints and losses
+    epochs (K6 launches counted on the device trace), its CSV, checkpoints and losses
     checked; 04 for one epoch warm-started from 03's checkpoint; 05 for one.
     Then the epoch measured as ``train_epoch`` measures it, on this tree (the
     ``train_epoch`` phase of the same run gives the in-memory epoch beside it)."""
     import csv
 
     from ptbxl_torch.cli import train_af_binary, train_ecg_baseline, train_multimodal_prototype
-    from ptbxl_torch.ops.kernels import relu_pool as k6
 
     out = os.path.join(work, "outputs")
     cfg = _cli_config(os.path.join(work, "bl.yaml"), root, out, TRAIN_EPOCHS,
                       "model:\n  ecg:\n    in_leads: 12\n    feat_dim: 256\n")
-    k6.launches = 0
     t0 = time.perf_counter()
-    state, text = _run_cli(train_ecg_baseline.main, ["--config", cfg])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = k6.launches
+    (state, text), launches = traced(lambda: _run_cli(train_ecg_baseline.main, ["--config", cfg]))
+    wall = time.perf_counter() - t0  # under the profiler
     run_dir = os.path.join(out, "ecg_baseline")
     ckpt = os.path.join(run_dir, "ckpts", "ecg_baseline_best.npz")
     with open(os.path.join(run_dir, "logs", "metrics_ecg_baseline.csv")) as f:
@@ -1462,7 +1485,8 @@ def phase_cli_train(root: str, work: str, seed: int, datasets: tuple) -> dict:
         if want not in text:
             raise AssertionError(f"03 printed no {want!r}")
     if launches != 4 * state.step or launches <= 0:
-        raise AssertionError(f"03: {launches} relu_pool_bwd launches for {state.step} steps")
+        raise AssertionError(f"03: {launches} relu_pool_bwd launches on the trace for "
+                             f"{state.step} steps")
     info = {"phase": "cli_train", "train_ecg_baseline": {
         "wall_s": wall, "epochs": TRAIN_EPOCHS, "steps": state.step, "csv": losses,
         "relu_pool_bwd_launches": launches}}
@@ -2403,25 +2427,23 @@ def phase_determinism(tree: str) -> dict:
     """The JAX package's identical-seeds contract (tests/test_determinism.py)
     on the card: for each of DET_CASES, one epoch of the tree's train split at
     seed 3 twice gives the same loss and every state-dict entry bit for bit,
-    and seed 4 another loss; K6, counted from 0 over those epochs, launches
-    four times a step.  Then, for the f32 ECGCNN, the same two epochs with
+    and seed 4 another loss; K6, counted on the device trace over those
+    epochs, launches four times a step.  Then, for the f32 ECGCNN, the same two epochs with
     the train step's deterministic scope replaced by a no-op scope and
     cuDNN's global flags at torch's defaults (what the step did before it
     pinned cuDNN): their spread, reported."""
     from ptbxl_torch.data import PTBXLDataset, PTBXLECGMultimodalDataset
-    from ptbxl_torch.ops.kernels import relu_pool as k6
     from ptbxl_torch.training import loop
 
     t0 = time.perf_counter()
     sets = {"ecgcnn": PTBXLDataset(tree, "train", CLASSES),
             "multimodal": PTBXLECGMultimodalDataset(tree, "train", CLASSES)}
-    cases, steps = {}, 0
-    k6.launches = 0
+    cases, steps, launches = {}, 0, 0
     for arch, dtype_name in DET_CASES:
-        (l1, s1, n1), (l2, s2, n2) = (_seed_epoch(sets[arch], arch, dtype_name, 3)
-                                      for _ in range(2))
-        l4, _, n4 = _seed_epoch(sets[arch], arch, dtype_name, 4)
+        ((l1, s1, n1), (l2, s2, n2), (l4, _, n4)), k6_traced = traced(
+            lambda: [_seed_epoch(sets[arch], arch, dtype_name, seed) for seed in (3, 3, 4)])
         steps += n1 + n2 + n4
+        launches += k6_traced
         name = f"{arch} {dtype_name}"
         unequal = [k for k in s1 if not torch.equal(s1[k], s2[k])]
         if l1 != l2 or unequal:
@@ -2432,9 +2454,9 @@ def phase_determinism(tree: str) -> dict:
         cases[name] = {"records": len(sets[arch]), "steps": n1,
                        "loss_seed3": [l1, l2], "loss_seed4": l4, "state_dict_entries": len(s1),
                        "state_dict_max_abs_diff": _state_max_diff(s1, s2)}
-    launches = k6.launches
     if launches != 4 * steps:
-        raise AssertionError(f"determinism: {launches} relu_pool_bwd launches for {steps} steps")
+        raise AssertionError(f"determinism: {launches} relu_pool_bwd launches on the trace for "
+                             f"{steps} steps")
     cudnn, scoped = torch.backends.cudnn, loop.deterministic_algorithms
     saved = (cudnn.deterministic, cudnn.benchmark)
     cudnn.deterministic, cudnn.benchmark = False, False
@@ -2491,11 +2513,10 @@ def phase_showdown() -> dict:
     The regenerated labels equal every ``test_y`` / ``val_y`` the JAX
     artifacts store; the port trains SHOWDOWN_RUNS with their stored configs
     and each family's ``compare`` holds its AUROC deficit (paired seed means
-    for hard) within SHOWDOWN_AUROC_BUDGET; K6, counted from 0 over the
-    runs, launches exactly 4 times a train step; SHOWDOWN_REPEAT runs twice,
+    for hard) within SHOWDOWN_AUROC_BUDGET; K6, counted on the device trace
+    of each run, launches exactly 4 times a train step; SHOWDOWN_REPEAT runs twice,
     with the same best epoch and test probabilities equal bit for bit.
     """
-    from ptbxl_torch.ops.kernels import relu_pool as k6
     from ptbxl_torch.tools import showdown as sd
 
     t_phase = time.perf_counter()
@@ -2516,15 +2537,17 @@ def phase_showdown() -> dict:
             labels_equal.append(f"{f}:{s}")
     data_s = time.perf_counter() - t_phase
 
-    k6.launches = 0
-    runs = {f: sd.run_port(cfgs[f], device="cuda") for f in SHOWDOWN_RUNS}
+    runs, launches = {}, 0
+    for f in SHOWDOWN_RUNS + (SHOWDOWN_REPEAT,):  # a trace a run
+        run, k6_traced = traced(lambda: sd.run_port(cfgs[f], device="cuda"))
+        runs.setdefault(f, run)
+        launches += k6_traced
+    again = run
     families = {}
     for f in SHOWDOWN_RUNS:
         families.setdefault(sd.family_of(cfgs[f]), f)
     reports = {fam: sd.compare(cfgs[f]) for fam, f in families.items()}
-    again = sd.run_port(cfgs[SHOWDOWN_REPEAT], device="cuda")
-    launches, steps = k6.launches, sum(r["train_steps"] for r in runs.values())
-    steps += again["train_steps"]
+    steps = sum(r["train_steps"] for r in runs.values()) + again["train_steps"]
     if launches != 4 * steps:
         raise AssertionError(f"showdown: {launches} relu_pool_bwd launches for {steps} steps")
 
@@ -3267,7 +3290,9 @@ def main(argv=None) -> int:
     # K6: one B=64 train step's four launches; launches on the training path, on
     # the Grad-CAM path (baseline + multimodal), on CLIs 11, 13 and the demo CLI
     # on the phase_train steps (one a step: the last block's pool) and on the
-    # showdown's training runs and the determinism phase's epochs (four a step)
+    # showdown's training runs and the determinism phase's epochs (four a step);
+    # "train", "train_extras", "showdown" and "determinism" are read off the
+    # device trace, which sees the launches of replayed CUDA graphs
     t32, t16 = k6_times["float32"], k6_times["bfloat16"]
     k6_by_path = {"train": train_info["launches"]["relu_pool_bwd"], "grad_cam": launches_cam,
                   "grad_cam_cli": sum(

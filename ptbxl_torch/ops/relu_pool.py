@@ -43,6 +43,12 @@ class force_framework_pool_bwd:
         return False
 
 
+def framework_pool_bwd_forced() -> bool:
+    """Whether a ``force_framework_pool_bwd`` scope is open (a captured train
+    step holds the backward it was captured with, so it keys on this)."""
+    return _force_framework_depth > 0
+
+
 def _forward(h: torch.Tensor) -> torch.Tensor:
     return F.relu(F.max_pool1d(h, 2))
 

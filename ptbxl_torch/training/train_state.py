@@ -8,7 +8,10 @@ reference's AdamW (torch defaults: betas (0.9, 0.999), eps 1e-8, decoupled
 weight decay on *all* parameters, BatchNorm affine included; scripts/03:133).
 optax's ``p - lr (m^ / (sqrt(v^) + eps) + wd p)`` and torch's
 ``p (1 - lr wd) - lr m^ / (sqrt(v^) + eps)`` are the same algebra, rounded
-differently.
+differently.  Where every parameter is on a CUDA device the optimizer is
+``capturable``: the same algorithm with its step count and bias corrections
+in device tensors, so ``training/loop.py`` can capture its step in a CUDA
+graph; elsewhere it is torch's default.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, weight_decay
     lr 0; step it once after every optimizer step.  0 keeps the reference's
     constant lr.
     """
+    params = list(params)
+    capturable = bool(params) and all(p.device.type == "cuda" for p in params)
     opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay, capturable=capturable)
     if warmup_steps <= 0:
         return opt, None
     return opt, LambdaLR(opt, lambda k: min(k, warmup_steps) / warmup_steps)
