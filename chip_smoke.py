@@ -19,7 +19,9 @@ smallest shape its plan admits, with several tiles and K != 256 and at the
 largest K, both forms, its rounding against ``tf32_round``, the concat on its
 float4 and 4-byte paths, at an odd row count and on a misaligned view), drives
 the main paths (``Predictor`` on the baseline and AF checkpoints, then on the
-multimodal checkpoint with demo vectors, Grad-CAM and demo importance on both,
+multimodal checkpoint with demo vectors, then ECGFounder's Net1D in bf16 on
+seeded weights against the benchmark's plain reference under its cell's
+limit, Grad-CAM and demo importance on both,
 then ``train`` on the baseline ECGCNN at full width with a reload of its best
 checkpoint, then the port bench's hybrid row and the tool probes' functions at
 their shapes, then the PTB-XL data layer, CLIs 03-08 and 12, the eval path after
@@ -1866,6 +1868,34 @@ def phase_pipeline() -> dict:
             "e2e": e2e}
 
 
+ECGFOUNDER_SEED = 2718281911  # the weights and records of the ``ecgfounder`` phase
+
+
+def phase_ecgfounder(seed: int = ECGFOUNDER_SEED) -> dict:
+    """ECGFounder's Net1D at its published widths: ``Predictor(arch="ecgfounder")``
+    in bf16 on BIG seeded records against the plain f32 reference on the card,
+    under the ``ecgfounder.bulk_bf16`` cell's limit, with its ms a chunk."""
+    from benchmark import run, synth
+    from benchmark.reference import ecgfounder as reference
+    from ptbxl_torch.inference import Predictor
+
+    cfg = run.load_json(run.ROOT / "benchmark/configs/ecgfounder.json")
+    limit = run.load_json(run.HERE / "traffic/ecgfounder_bulk_bf16.json")["limits"]["max_prob_gap"]
+    w = synth.weights(cfg["params"], seed, "cuda")
+    x = synth.records(BIG, cfg["input_length"], seed, "cuda")
+    p = Predictor(w, arch="ecgfounder", precision="default", device="cuda")
+    got = p(x)
+    want = reference.probs(w, cfg, x, device="cuda").numpy()
+    if got.shape != (BIG, cfg["num_labels"]) or not np.isfinite(got).all():
+        raise AssertionError(f"bad ecgfounder Predictor output {got.shape}")
+    gap = gate("Predictor ecgfounder bf16", float(np.abs(got - want).max()), limit)
+    xd = torch.as_tensor(x, device="cuda")
+    with torch.no_grad():
+        ms = time_ms(lambda: p._forward(xd))
+    return {"phase": "ecgfounder", "max_abs_err": gap, "limit": limit, "chunk": BIG,
+            "ms_per_chunk": ms}
+
+
 INT8_B = 8192  # the int8 forward's timing batch, the bench's int8 row
 
 
@@ -2907,6 +2937,7 @@ def main(argv=None) -> int:
     if not (np.isfinite(probs_mm_big).all() and probs_mm_big.shape == (BIG, 5)):
         raise AssertionError(f"bad multimodal Predictor output {probs_mm_big.shape}")
     emit({"phase": "predictor_mm", "launches": launches_mm, "max_abs_err": mm_errs})
+    emit(phase_ecgfounder())
 
     # -- phase 5: Grad-CAM on the card (its backward through the pool is K6) ----
     k6.launches = 0

@@ -10,6 +10,9 @@
     vit = Predictor(state_dict, arch="st_mem", precision="default")
     probs = vit(signals)                        # ST-MEM's ViT-B/75 in bf16
 
+    founder = Predictor(state_dict, arch="ecgfounder", precision="default")
+    probs = founder(signals)                    # ECGFounder's Net1D in bf16, 150 labels
+
 * accepts reference-layout ``[N, 12, T]`` or channels-last ``[N, T, 12]`` raw
   signals; the per-lead z-score runs on the device
 * ``arch='st_mem'`` serves ST-MEM's ViT encoder (``models/st_mem.py``) on the
@@ -18,6 +21,17 @@
   to 9 s, then the z-score) is the model's own, ``precision='default'`` runs it
   in bf16 with the attention through ``F.scaled_dot_product_attention``;
   its sizes are read from ``state_dict``'s shapes, its heads 64 wide
+* ``arch='ecgfounder'`` serves ECGFounder's Net1D (``models/ecgfounder.py``)
+  on the framework engine alone, as ``'st_mem'`` (``'kernel'`` and
+  ``precision='int8'`` raise), at ``'highest'`` (f32, TF32 off) or
+  ``'default'`` (bf16: cuBLAS GEMMs for the 1x1 convs, cuDNN's grouped and
+  strided convs); its front end is the CNNs' z-score; its widths and its
+  label count (150 for the released model) are read from ``state_dict``'s
+  shapes, so ``num_labels`` is not consulted; at ``'default'`` it holds
+  the parameters in bf16 (rounded once, as the module would round them on
+  every call); on one GPU it replays Net1D's stem, stages and head as CUDA
+  graphs, captured at the first chunk of each shape (``Net1D.graphed``).  No
+  ECGFounder checkpoint format is read (``from_checkpoint`` raises)
 * ``engine='kernel'`` runs the hand-written fused forward (K2, or K3 for
   ``arch='multimodal'``; f32 compute, its conv blocks in 3xTF32 on the tensor
   cores), ``engine='framework'`` the ``nn.Module`` on cuDNN (the JAX
@@ -81,6 +95,8 @@ import torch
 
 from ptbxl_torch.models.ecg_cnn import ECGCNN
 from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
+from ptbxl_torch.models.ecgfounder import Net1D
+from ptbxl_torch.models.ecgfounder import widths as net1d_widths
 from ptbxl_torch.models.factory import merge_state
 from ptbxl_torch.models.params_io import load_checkpoint
 from ptbxl_torch.models.st_mem import STMEM, widths
@@ -100,14 +116,16 @@ _MAX_BATCH_ENV = os.environ.get("PTBXL_TORCH_KERNEL_MAX_BATCH")
 KERNEL_MAX_BATCH = int(_MAX_BATCH_ENV or 1024)  # 'highest': the crossover against cuDNN f32
 KERNEL_MAX_BATCH_BF16 = int(_MAX_BATCH_ENV or 16)  # 'default': the crossover against cuDNN bf16
 
-_ARCHS = ("ecgcnn", "multimodal", "st_mem")
+_ARCHS = ("ecgcnn", "multimodal", "st_mem", "ecgfounder")
+_FRAMEWORK_ONLY = ("st_mem", "ecgfounder")  # no kernel engine and no int8 path
 _ENGINES = ("auto", "framework", "kernel")
 ENGINE_ALIASES = {"xla": "framework", "pallas": "kernel"}  # the JAX Predictor's names
 _PRECISIONS = ("highest", "default", "int8")
 
 
 class Predictor:
-    """Batched baseline / AF ECGCNN, FiLM multimodal or ST-MEM inference on one device."""
+    """Batched baseline / AF ECGCNN, FiLM multimodal, ST-MEM or ECGFounder inference
+    on one device."""
 
     def __init__(
         self,
@@ -139,10 +157,9 @@ class Predictor:
         if engine not in _ENGINES:
             raise ValueError(
                 f"engine must be one of {_ENGINES + tuple(ENGINE_ALIASES)}, got {engine!r}")
-        if arch == "st_mem":
-            # no kernel engine and no int8 path exist for the ViT encoder
+        if arch in _FRAMEWORK_ONLY:
             if engine == "kernel" or precision == "int8":
-                raise ValueError("arch='st_mem' runs on the framework engine only, at "
+                raise ValueError(f"arch={arch!r} runs on the framework engine only, at "
                                  "precision 'highest' or 'default' (engine='framework' or "
                                  f"'auto'), not engine={engine!r}, precision={precision!r}")
             engine = "framework"
@@ -181,6 +198,10 @@ class Predictor:
                                precision=model_precision, dtype=dtype)
             # resolved once: the model runs its own front end before the z-score
             self._framework = self._framework_st_mem
+        elif arch == "ecgfounder":
+            sizes = net1d_widths(state_dict)
+            self._num_labels = sizes["num_labels"]
+            self.model = Net1D(**sizes, precision=model_precision, dtype=dtype)
         elif arch == "multimodal":
             self.model = ECGMultimodal(feat_dim=feat_dim, num_labels=num_labels,
                                        demo_hidden_dim=demo_hidden_dim,
@@ -190,6 +211,10 @@ class Predictor:
                                 precision=model_precision, dtype=dtype)
         merge_state(self.model, state_dict, strict=True)
         self.model.to(self.device).eval()
+        if arch == "ecgfounder":
+            # its parameters rounded to the compute dtype once: the values the
+            # module would round on every call, without 204 casts a chunk
+            self.model.to(dtype)
         self._quant = self.int8_layers = None
         if precision == "int8":
             arrs, n_blocks, self.int8_layers = split_meta(resolve_qparams(
@@ -216,10 +241,16 @@ class Predictor:
         self._lock = threading.Lock()  # a call holds the staging ring
         self._ring: Optional[_Ring] = None
         self._pipelined = self.device.type == "cuda" and self._replicas is None
+        if arch == "ecgfounder":
+            # its pieces replayed as CUDA graphs: ~370 launches a chunk set the pace otherwise
+            self.model.graphed = self._pipelined
 
     @classmethod
     def from_checkpoint(cls, ckpt_path: str, num_labels: int = 5, arch: str = "ecgcnn",
                         **kwargs) -> "Predictor":
+        if arch == "ecgfounder":
+            raise ValueError("arch='ecgfounder' has no checkpoint format: build Net1D's "
+                             "state dict (models/ecgfounder.py) and pass it to Predictor")
         state, classes = load_checkpoint(ckpt_path, arch=arch)
         return cls(state, classes=classes, num_labels=num_labels, arch=arch, **kwargs)
 

@@ -8,6 +8,7 @@ import torch
 
 from ptbxl_torch.models.ecg_cnn import ECGCNN
 from ptbxl_torch.models.ecg_multimodal import ECGMultimodal
+from ptbxl_torch.models.ecgfounder import Net1D
 from ptbxl_torch.models.params_io import StateDict, load_checkpoint
 from ptbxl_torch.models.st_mem import STMEM
 from ptbxl_torch.utils.device import DeviceLike, resolve_device
@@ -85,6 +86,15 @@ def build_st_mem(
     model = STMEM(num_labels=num_labels, width=width, depth=depth, heads=heads, mlp=mlp,
                   patch=patch, samples=samples, leads=leads, precision=precision, dtype=dtype,
                   generator=gen)
+    return model.to(dev).eval()
+
+
+def build_ecgfounder(seed: int = 42, device: DeviceLike = None, **sizes) -> Net1D:
+    """A freshly initialised ECGFounder Net1D in eval mode, weights drawn from
+    ``seed``; ``sizes`` are ``Net1D``'s arguments (the fine-tuning's widths
+    and 150 labels by default, ``precision`` and ``dtype``)."""
+    dev = resolve_device(device)
+    model = Net1D(**sizes, generator=torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 
 
