@@ -9,7 +9,9 @@ and 8192, on a ragged T=37 through clusters of 2, 4 and 8 CTAs, its output
 bit for bit against ``(x - mean) / sd`` from its own stats, its division
 against IEEE division; K2 ECGCNN forward and each of its four 3xTF32 conv
 blocks, K3 FiLM multimodal forward (both in bf16 on K4's ``wgmma`` blocks,
-K3's tail on the tile sums alone too), K6 ReLU -> MaxPool backward, K4 hybrid
+K3's tail on the tile sums alone too), K6 ReLU -> MaxPool backward, the f32
+conv weight gradient's kernel (against f64 at a B=64 step's four blocks and
+ragged shapes, and against itself bit for bit), K4 hybrid
 forward and each of its four ``wgmma`` conv blocks, K5 wide z-score (the
 ragged T=37 too), P3 and P4 conv layers (both on K4's ``wgmma``
 block: P3's output on a zero-padded input also bit for bit against K4's
@@ -45,7 +47,8 @@ at B=8192; the four training-backward probes and ``proto_int8``; CLI 01
 against a loopback HTTP mirror of the synthetic tree; the WFDB codec fuzz, 1,600 random
 records of every format; the JAX package's identical-seeds contract on the card
 (one epoch of the tree's train split twice at seed 3, bit for bit, and seed 4
-apart, for the ECGCNN in f32 and bf16 and the multimodal model); the training
+apart, for the ECGCNN in f32 and bf16 and the multimodal model; the conv
+weight gradient's kernel on the trace of every f32 step); the training
 showdown: the port trained to completion on
 the synthetic mini-PTB-XL with the stored configs of JAX's committed artifacts
 ``outputs/showdown/jax*.json``, labels equal to theirs, each family's final
@@ -56,10 +59,10 @@ outputs, the demo-pack parity gate, the JAX scripts' CSV schemas, ``Predictor``,
 train step and the epoch beside their plain versions, the framework (cuDNN,
 torch's own pool backward) path and their bounds; the crossover sweeps give
 ``Predictor``'s two engine limits, f32 and bf16, and fail below the shipped ones.  The launch counters are set
-to 0 just before each main path and read just after it; K6 on the training
-paths is counted on the device trace (``traced``), since a train step
-replayed from a CUDA graph launches it from the card, not through its
-wrapper.  Each phase prints one
+to 0 just before each main path and read just after it; K6 and the conv
+weight gradient's kernel on the f32 training paths are counted on the device
+trace (``traced_counts``), since a train step replayed from a CUDA graph
+launches them from the card, not through their wrappers.  Each phase prints one
 JSON line; any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero and
 prints no result.  Imports nothing of JAX or ptbxl_tpu.
@@ -95,6 +98,10 @@ CLASSES = ["MI", "STTC", "HYP", "CD", "NORM"]
 TRAIN_B, TRAIN_LR, TRAIN_WD, TRAIN_EPOCHS = 64, 1.5e-3, 1e-4, 2
 TRAIN_N, VAL_N = 256, 64
 K6_KERNEL = "relu_pool_bwd"  # K6's kernel on the device trace (relu_pool_bwd_kernel<...>)
+# the f32 conv weight gradient's product kernel on the trace (not its wgrad_reduce_kernel)
+WGRAD_KERNEL = "conv_wgrad_kernel"
+# |dW - f64| over the largest sum of |dy| |x| (tests/test_torch_conv_wgrad.py's GATE)
+WGRAD_GATE = 2.0 ** -20
 TRAIN_B_BIG = 256  # the second train-step timing batch
 EPOCH_N, VAL_EPOCH_N = 2048, 512  # the timed epoch: 32 steps at B=64; 8 val batches
 # the reference's metrics CSV header (ptbxl_tpu/utils/csv_log.py:14-25)
@@ -240,8 +247,9 @@ def launch_breakdown(fn, attempts: int = 3) -> list:
                          f"in {attempts} profiled windows")
 
 
-def traced(fn) -> tuple:
-    """(fn's result, K6's launches on the device trace over ``fn``).
+def traced_counts(fn, names) -> tuple:
+    """(fn's result, {name: launches of kernels whose name holds it, on the
+    device trace over ``fn``}).
 
     CUDA activity alone, after a discarded warm-up cycle (the profiler can
     miss the first launches of a window); the card is synchronised before
@@ -258,8 +266,8 @@ def traced(fn) -> tuple:
         out = fn()
         torch.cuda.synchronize()
         prof.step()
-    return out, sum(1 for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and K6_KERNEL in e.name)
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return out, {n: sum(n in k for k in kernels) for n in names}
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple:
@@ -357,6 +365,50 @@ def phase_k6(gen: torch.Generator) -> tuple:
     return k6_err, k6_autograd
 
 
+def phase_conv_wgrad(gen: torch.Generator) -> dict:
+    """The f32 conv weight gradient's kernel (ops/kernels/conv_wgrad.py) at the
+    four block shapes of a B=64 train step and at ragged ones, against the
+    framework's f64 weight gradient (WGRAD_GATE of the largest |dy| |x| sum)
+    and against itself bit for bit; then each block's ms beside its bound,
+    its plain version and cuDNN's deterministic wgrad (probe_bwd_breakdown's
+    ``wgrad_rows``)."""
+    from ptbxl_torch.ops.kernels import conv_wgrad as cw
+    from ptbxl_torch.tools.probe_bwd_breakdown import wgrad_rows
+    from ptbxl_torch.utils.device import highest_precision
+
+    t0 = time.perf_counter()
+    launches0 = cw.launches
+    errs, equal = {}, {}
+    for b, cin, cout, t in ([(TRAIN_B, 12, 32, 5000), (TRAIN_B, 32, 64, 2500),
+                             (TRAIN_B, 64, 128, 1250), (TRAIN_B, 128, 256, 625)]
+                            + [(3, 12, 32, 37), (5, 64, 128, 1001), (2, 20, 96, 9)]):
+        x = torch.randn(b, cin, t, generator=gen, device="cuda")
+        dy = torch.randn(b, cout, t, generator=gen, device="cuda") * 1e-3
+        got, again = cw.conv_wgrad(x, dy), cw.conv_wgrad(x, dy)
+        shape = (cout, cin, cw.K)
+        with highest_precision():
+            want = torch.nn.grad.conv1d_weight(x.double(), shape, dy.double(), padding=cw.PAD)
+            scale = float(torch.nn.grad.conv1d_weight(x.double().abs(), shape, dy.double().abs(),
+                                                      padding=cw.PAD).max())
+        name = f"{[b, cin, cout, t]}"
+        errs[name] = gate(f"conv_wgrad {name} (over the |dy| |x| scale)",
+                          max_diff(got.double(), want) / scale, WGRAD_GATE)
+        equal[name] = bool(torch.equal(got, again))
+        if not equal[name]:
+            raise AssertionError(f"conv_wgrad {name}: two launches differ")
+    launches = cw.launches - launches0
+    rows = wgrad_rows(TRAIN_B, T_FULL, 10, "cuda")
+    with highest_precision():
+        for r, (cin, cout) in zip(rows, ((12, 32), (32, 64), (64, 128), (128, 256))):
+            x = torch.randn(TRAIN_B, cin, r["t"], generator=gen, device="cuda")
+            dy = torch.randn(TRAIN_B, cout, r["t"], generator=gen, device="cuda")
+            r["plain_ms"] = time_ms(lambda: cw.conv_wgrad_plain(x, dy), reps=3)
+            r["slices"] = cw.plan(TRAIN_B, r["t"], cin, cout)[0]
+    return {"phase": "conv_wgrad", "max_err_over_scale": errs, "repeat_bit_equal": equal,
+            "gate": WGRAD_GATE, "launches": launches, "blocks": rows,
+            "phase_s": time.perf_counter() - t0}
+
+
 def _train_batch(b: int, gen: torch.Generator, demo: bool = False) -> dict:
     """One training batch on the card: raw [B, T, 12] signals, 5-label targets, no padding."""
     batch = {"ecg": raw_batch(b, gen),
@@ -410,14 +462,16 @@ def phase_train(seed: int, gen: torch.Generator) -> dict:
                        train_desc=None, eval_desc=None)
         k1.launches = k2.launches = k2.launches_mm = 0
         t0 = time.time()
-        state, k6_traced = traced(lambda: train(run))
+        state, on_trace = traced_counts(lambda: train(run), (K6_KERNEL, WGRAD_KERNEL))
         info["wall_s"] = time.time() - t0  # under the profiler
-        info["launches"] = {"relu_pool_bwd": k6_traced, "zscore": k1.launches,
+        info["launches"] = {"relu_pool_bwd": on_trace[K6_KERNEL],
+                            "conv_wgrad": on_trace[WGRAD_KERNEL], "zscore": k1.launches,
                             "fused_ecgcnn": k2.launches, "fused_multimodal": k2.launches_mm}
         info["steps"] = state.step
-        if k6_traced != 4 * state.step or state.step != TRAIN_EPOCHS * (TRAIN_N // TRAIN_B):
-            raise AssertionError(f"train path: {k6_traced} relu_pool_bwd launches on the trace "
-                                 f"for {state.step} steps (want 4 a step)")
+        if (on_trace[K6_KERNEL] != 4 * state.step or on_trace[WGRAD_KERNEL] != 4 * state.step
+                or state.step != TRAIN_EPOCHS * (TRAIN_N // TRAIN_B)):
+            raise AssertionError(f"train path: {on_trace} launches on the trace for "
+                                 f"{state.step} steps (want 4 of each a step)")
         with open(run.metrics_csv) as f:
             rows = list(csv.reader(f))
         if rows[0] != CSV_HEADER or len(rows) != 1 + TRAIN_EPOCHS:
@@ -645,7 +699,9 @@ def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -
         torch.cuda.synchronize()
         prof_wall_s = time.perf_counter() - t0
     busy_ms = _busy_ms(prof)
-    _, launches = traced(lambda: epoch(5))  # K6 on the card over a whole epoch
+    # K6 and the conv weight gradient's kernel on the card over a whole epoch
+    _, on_trace = traced_counts(lambda: epoch(5), (K6_KERNEL, WGRAD_KERNEL))
+    launches, wgrad = on_trace[K6_KERNEL], on_trace[WGRAD_KERNEL]
     batch = next(iter(device_prefetch(src.epoch(4))))
     step_ms = time_ms(lambda: step(st, batch))
 
@@ -668,13 +724,13 @@ def train_epoch(seed: int, datasets: tuple = None, phase: str = "train_epoch") -
         ckpt_s = time.perf_counter() - t0
 
     steps = src.steps_per_epoch
-    if launches != 4 * steps or not np.isfinite(loss):
-        raise AssertionError(f"timed epoch: loss {loss}, {launches} K6 launches on the trace of "
-                             f"an epoch of {steps} steps")
+    if launches != 4 * steps or wgrad != 4 * steps or not np.isfinite(loss):
+        raise AssertionError(f"timed epoch: loss {loss}, {launches} K6 and {wgrad} "
+                             f"{WGRAD_KERNEL} launches on the trace of an epoch of {steps} steps")
     return {"phase": phase, "records": len(ds), "batch": TRAIN_B, "steps": steps,
             "reader": src.reader, "emit_adc": src.emit_adc,
             "precision": "highest", "dataset_make_s": make_s, "train_bce": loss,
-            "relu_pool_bwd_launches": launches,
+            "relu_pool_bwd_launches": launches, "conv_wgrad_launches": wgrad,
             "epoch_wall_s": wall_s, "records_per_s": len(ds) / wall_s,
             "step_ms": step_ms, "steps_x_step_ms": steps * step_ms,
             "host_batches_s": host_s, "host_ms_per_batch": host_s / steps * 1e3,
@@ -696,7 +752,8 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
     normal input), and two epochs from equal seeds: the max |diff| of the head
     weights is reported (0 since the step pins cuDNN's deterministic
     algorithms; the ``determinism`` phase gates it).
-    K6's launches are counted on the trace of the three steps: four a step."""
+    K6's and the conv weight gradient's launches are counted on the trace of
+    the three steps: four of each a step."""
     import io
     import re
     import tempfile
@@ -748,10 +805,11 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
         kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
         trace_info = {"files": len(files), "bytes": os.path.getsize(files[0]),
                       "kernel_events": len(kernels),
-                      "relu_pool_bwd": sum(K6_KERNEL in name for name in kernels)}
-        if trace_info["relu_pool_bwd"] != 4 * 3:
-            raise AssertionError(f"trace of three steps: {trace_info['relu_pool_bwd']} K6 "
-                                 f"launches on the card")
+                      "relu_pool_bwd": sum(K6_KERNEL in name for name in kernels),
+                      "conv_wgrad": sum(WGRAD_KERNEL in name for name in kernels)}
+        if trace_info["relu_pool_bwd"] != 4 * 3 or trace_info["conv_wgrad"] != 4 * 3:
+            raise AssertionError(f"trace of three steps: {trace_info['relu_pool_bwd']} K6 and "
+                                 f"{trace_info['conv_wgrad']} {WGRAD_KERNEL} launches on the card")
 
     checked = make_train_step(check_numerics=True)
     step_ms = time_ms(lambda: step(st, batch))
@@ -797,7 +855,8 @@ def phase_train_extras(seed: int, gen: torch.Generator) -> dict:
             "equal_seed": {"records": EXTRAS_N // 2, "head_weight_max_abs_diff":
                            float((heads[0] - heads[1]).abs().max()),
                            "losses": losses, "loss_abs_diff": abs(losses[0] - losses[1])},
-            "launches": {"relu_pool_bwd": trace_info["relu_pool_bwd"]}}
+            "launches": {"relu_pool_bwd": trace_info["relu_pool_bwd"],
+                         "conv_wgrad": trace_info["conv_wgrad"]}}
 
 
 def _fit_tree(tree: str, out: str, seed: int) -> None:
@@ -1458,7 +1517,8 @@ def _run_cli(main, argv) -> tuple:
 
 def phase_cli_train(root: str, work: str, seed: int, datasets: tuple) -> dict:
     """CLIs 03, 04 and 05 on the tree at full width, batch 64: 03 for two
-    epochs (K6 launches counted on the device trace), its CSV, checkpoints and losses
+    epochs (K6's and the conv weight gradient's launches counted on the device
+    trace), its CSV, checkpoints and losses
     checked; 04 for one epoch warm-started from 03's checkpoint; 05 for one.
     Then the epoch measured as ``train_epoch`` measures it, on this tree (the
     ``train_epoch`` phase of the same run gives the in-memory epoch beside it)."""
@@ -1470,7 +1530,9 @@ def phase_cli_train(root: str, work: str, seed: int, datasets: tuple) -> dict:
     cfg = _cli_config(os.path.join(work, "bl.yaml"), root, out, TRAIN_EPOCHS,
                       "model:\n  ecg:\n    in_leads: 12\n    feat_dim: 256\n")
     t0 = time.perf_counter()
-    (state, text), launches = traced(lambda: _run_cli(train_ecg_baseline.main, ["--config", cfg]))
+    (state, text), on_trace = traced_counts(
+        lambda: _run_cli(train_ecg_baseline.main, ["--config", cfg]), (K6_KERNEL, WGRAD_KERNEL))
+    launches, wgrad = on_trace[K6_KERNEL], on_trace[WGRAD_KERNEL]
     wall = time.perf_counter() - t0  # under the profiler
     run_dir = os.path.join(out, "ecg_baseline")
     ckpt = os.path.join(run_dir, "ckpts", "ecg_baseline_best.npz")
@@ -1486,12 +1548,12 @@ def phase_cli_train(root: str, work: str, seed: int, datasets: tuple) -> dict:
     for want in ("Train BCE:", "★ New best AUPRC:"):
         if want not in text:
             raise AssertionError(f"03 printed no {want!r}")
-    if launches != 4 * state.step or launches <= 0:
-        raise AssertionError(f"03: {launches} relu_pool_bwd launches on the trace for "
-                             f"{state.step} steps")
+    if launches != 4 * state.step or wgrad != 4 * state.step or launches <= 0:
+        raise AssertionError(f"03: {launches} relu_pool_bwd and {wgrad} {WGRAD_KERNEL} "
+                             f"launches on the trace for {state.step} steps")
     info = {"phase": "cli_train", "train_ecg_baseline": {
         "wall_s": wall, "epochs": TRAIN_EPOCHS, "steps": state.step, "csv": losses,
-        "relu_pool_bwd_launches": launches}}
+        "relu_pool_bwd_launches": launches, "conv_wgrad_launches": wgrad}}
 
     mm_cfg = _cli_config(os.path.join(work, "mm.yaml"), root, os.path.join(out, "ecg_multimodal"),
                          1, "model:\n  ecg_multimodal:\n    in_leads: 12\n    ecg_feat_dim: 256\n"
@@ -2458,22 +2520,27 @@ def phase_determinism(tree: str) -> dict:
     on the card: for each of DET_CASES, one epoch of the tree's train split at
     seed 3 twice gives the same loss and every state-dict entry bit for bit,
     and seed 4 another loss; K6, counted on the device trace over those
-    epochs, launches four times a step.  Then, for the f32 ECGCNN, the same two epochs with
+    epochs, launches four times a step, the conv weight gradient's kernel
+    four times an f32 step (none in bf16).  Then, for the f32 ECGCNN, the same two epochs with
     the train step's deterministic scope replaced by a no-op scope and
-    cuDNN's global flags at torch's defaults (what the step did before it
-    pinned cuDNN): their spread, reported."""
+    cuDNN's global flags at torch's defaults: their spread, reported.  The
+    weight gradients come from the kernel with or without the scope, so the
+    spread is that of cuDNN's fprop and dgrad at their defaults alone."""
     from ptbxl_torch.data import PTBXLDataset, PTBXLECGMultimodalDataset
     from ptbxl_torch.training import loop
 
     t0 = time.perf_counter()
     sets = {"ecgcnn": PTBXLDataset(tree, "train", CLASSES),
             "multimodal": PTBXLECGMultimodalDataset(tree, "train", CLASSES)}
-    cases, steps, launches = {}, 0, 0
+    cases, steps, launches, f32_steps, wgrad = {}, 0, 0, 0, 0
     for arch, dtype_name in DET_CASES:
-        ((l1, s1, n1), (l2, s2, n2), (l4, _, n4)), k6_traced = traced(
-            lambda: [_seed_epoch(sets[arch], arch, dtype_name, seed) for seed in (3, 3, 4)])
+        ((l1, s1, n1), (l2, s2, n2), (l4, _, n4)), on_trace = traced_counts(
+            lambda: [_seed_epoch(sets[arch], arch, dtype_name, seed) for seed in (3, 3, 4)],
+            (K6_KERNEL, WGRAD_KERNEL))
         steps += n1 + n2 + n4
-        launches += k6_traced
+        launches += on_trace[K6_KERNEL]
+        wgrad += on_trace[WGRAD_KERNEL]
+        f32_steps += (n1 + n2 + n4) if dtype_name == "f32" else 0
         name = f"{arch} {dtype_name}"
         unequal = [k for k in s1 if not torch.equal(s1[k], s2[k])]
         if l1 != l2 or unequal:
@@ -2487,6 +2554,10 @@ def phase_determinism(tree: str) -> dict:
     if launches != 4 * steps:
         raise AssertionError(f"determinism: {launches} relu_pool_bwd launches on the trace for "
                              f"{steps} steps")
+    # the f32 steps' four conv weight gradients each on the kernel; bf16's on cuDNN
+    if wgrad != 4 * f32_steps:
+        raise AssertionError(f"determinism: {wgrad} {WGRAD_KERNEL} launches on the trace for "
+                             f"{f32_steps} f32 steps")
     cudnn, scoped = torch.backends.cudnn, loop.deterministic_algorithms
     saved = (cudnn.deterministic, cudnn.benchmark)
     cudnn.deterministic, cudnn.benchmark = False, False
@@ -2498,7 +2569,7 @@ def phase_determinism(tree: str) -> dict:
         loop.deterministic_algorithms = scoped
         cudnn.deterministic, cudnn.benchmark = saved
     return {"phase": "determinism", "batch": DET_B, "cases": cases, "train_steps": steps,
-            "launches": {"relu_pool_bwd": launches},
+            "launches": {"relu_pool_bwd": launches, "conv_wgrad": wgrad},
             "ecgcnn_f32_without_the_scope": {
                 "loss_abs_diff": abs(l1 - l2), "state_dict_max_abs_diff": _state_max_diff(s1, s2),
                 "entries_apart": sum(not torch.equal(s1[k], s2[k]) for k in s1)},
@@ -2543,8 +2614,9 @@ def phase_showdown() -> dict:
     The regenerated labels equal every ``test_y`` / ``val_y`` the JAX
     artifacts store; the port trains SHOWDOWN_RUNS with their stored configs
     and each family's ``compare`` holds its AUROC deficit (paired seed means
-    for hard) within SHOWDOWN_AUROC_BUDGET; K6, counted on the device trace
-    of each run, launches exactly 4 times a train step; SHOWDOWN_REPEAT runs twice,
+    for hard) within SHOWDOWN_AUROC_BUDGET; K6 and the conv weight gradient's
+    kernel, counted on the device trace of each run, launch exactly 4 times a
+    train step each (every run is f32 ``highest``); SHOWDOWN_REPEAT runs twice,
     with the same best epoch and test probabilities equal bit for bit.
     """
     from ptbxl_torch.tools import showdown as sd
@@ -2567,19 +2639,22 @@ def phase_showdown() -> dict:
             labels_equal.append(f"{f}:{s}")
     data_s = time.perf_counter() - t_phase
 
-    runs, launches = {}, 0
+    runs, launches, wgrad = {}, 0, 0
     for f in SHOWDOWN_RUNS + (SHOWDOWN_REPEAT,):  # a trace a run
-        run, k6_traced = traced(lambda: sd.run_port(cfgs[f], device="cuda"))
+        run, on_trace = traced_counts(lambda: sd.run_port(cfgs[f], device="cuda"),
+                                      (K6_KERNEL, WGRAD_KERNEL))
         runs.setdefault(f, run)
-        launches += k6_traced
+        launches += on_trace[K6_KERNEL]
+        wgrad += on_trace[WGRAD_KERNEL]
     again = run
     families = {}
     for f in SHOWDOWN_RUNS:
         families.setdefault(sd.family_of(cfgs[f]), f)
     reports = {fam: sd.compare(cfgs[f]) for fam, f in families.items()}
     steps = sum(r["train_steps"] for r in runs.values()) + again["train_steps"]
-    if launches != 4 * steps:
-        raise AssertionError(f"showdown: {launches} relu_pool_bwd launches for {steps} steps")
+    if launches != 4 * steps or wgrad != 4 * steps:
+        raise AssertionError(f"showdown: {launches} relu_pool_bwd and {wgrad} {WGRAD_KERNEL} "
+                             f"launches for {steps} steps")
 
     out_families = {}
     for fam, rep in reports.items():
@@ -2618,7 +2693,7 @@ def phase_showdown() -> dict:
                    "best_epochs": [first["best_epoch"], again["best_epoch"]],
                    "abs_delta_auroc": abs(again["test_auroc_macro"] - first["test_auroc_macro"]),
                    "max_abs_delta_test_probs": delta_probs},
-        "train_steps": steps, "launches": {"relu_pool_bwd": launches},
+        "train_steps": steps, "launches": {"relu_pool_bwd": launches, "conv_wgrad": wgrad},
         "data_s": data_s, "phase_s": time.perf_counter() - t_phase}
 
 
@@ -2853,6 +2928,8 @@ def main(argv=None) -> int:
     k6_err, k6_autograd = phase_k6(gen)
     torch.cuda.synchronize()
     emit({"phase": "k6", "max_abs_err": k6_err, "vs_autograd": k6_autograd})
+    wgrad_info = phase_conv_wgrad(gen)
+    emit(wgrad_info)
 
     # -- phase 3d: K4, K5 and P3 against their plain versions -------------------
     k4_err = phase_k4(folded, {"1": x_raw[:1], "7": x_demo, str(BIG): x_raw,
@@ -3344,6 +3421,26 @@ def main(argv=None) -> int:
         "ms_bf16": t16["ms"], "bound_ms_bf16": t16["bound"][0],
         "library_bf16_ms": t16["library_ms"],
     })
+    # the f32 conv weight gradient (no TPU kernel: ptbxl_tpu/ops/fast_wgrad.py leaves
+    # it to XLA): a B=64 train step's four blocks, summed; launches in its own
+    # phase (the wrapper's) and on the f32 training paths (the device trace,
+    # graph replays included)
+    wrows = wgrad_info["blocks"]
+    wgrad_by_path = {"conv_wgrad": wgrad_info["launches"],
+                     "train": train_info["launches"]["conv_wgrad"],
+                     "train_extras": extras_info["launches"]["conv_wgrad"],
+                     "showdown": showdown_info["launches"]["conv_wgrad"],
+                     "determinism": det_info["launches"]["conv_wgrad"]}
+    kernels.append({
+        "name": "conv_wgrad", "route": "cuda", "source": "ptbxl_torch/csrc/conv_wgrad.cu",
+        "replaces": None, "launches": sum(wgrad_by_path.values()),
+        "launches_by_path": wgrad_by_path,
+        "max_err_over_scale": max(wgrad_info["max_err_over_scale"].values()),
+        "ms": sum(r["kernel_ms"] for r in wrows), "plain_ms": sum(r["plain_ms"] for r in wrows),
+        "bound_ms": sum(r["bound_ms"] for r in wrows), "bound_by": "operations",
+        "library_ms": sum(r["cudnn_det_ms"] for r in wrows), "batch": TRAIN_B,
+        "per_block": wrows,
+    })
     # K4: the bench's hybrid row at B=8192 (B=512 beside it); launches on that row;
     # each launch's ms beside its own bound (stats pass, four wgmma blocks, tail)
     t8, t5 = k4_times[HYBRID_B], k4_times[BIG]
@@ -3464,7 +3561,7 @@ def main(argv=None) -> int:
                        "p3_direct_ms": r["p3_direct_ms"]}
                       for r, p in zip(prows, p4_info["plain_ms"])],
     })
-    if len(kernels) != 10 or not all(k["launches"] > 0 for k in kernels):
+    if len(kernels) != 11 or not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,9 @@ parameters for 5 labels.  Submodule names follow the reference state dict
   (ecg_cnn.py:211-237): Grad-CAM differentiates ``tail`` with autograd.
 * MaxPool(2) floors odd lengths (T=5000 -> 2500 -> 1250 -> 625 -> 312);
   ReLU -> MaxPool(2) differentiates through K6 (``ops/relu_pool.py``).
+* A train-mode f32 conv on the card at ``precision='highest'`` takes its
+  weight gradient from a hand-written kernel (``ops/conv_wgrad.py``), its
+  forward and input gradient from cuDNN as before.
 * ``model.train()`` is JAX's ``train=True``: BatchNorm normalizes with the
   batch statistics and updates the running ones as flax does (biased
   variance, ``ConvBlock._train_batch_norm``).  Under a data-parallel mesh
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ptbxl_torch.ops.conv_wgrad import conv1d_same
 from ptbxl_torch.ops.phase_conv import phase_conv_cf
 from ptbxl_torch.ops.relu_pool import relu_max_pool2
 from ptbxl_torch.parallel.collectives import ColumnParallelLinear, all_reduce_sum
@@ -119,7 +123,7 @@ class ConvBlock(nn.Module):
     def conv_only(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.net[0]
         dt = self.dtype
-        y = F.conv1d(x.to(dt), conv.weight.to(dt), padding=conv.padding)
+        y = conv1d_same(x.to(dt), conv.weight.to(dt), conv.padding, self.training)
         return y + conv.bias.to(dt)[:, None]  # the bias after the rounded product, as flax
 
     def _train_batch_norm(self, a: torch.Tensor) -> torch.Tensor:

@@ -42,14 +42,17 @@
   mid-step), both fixed when the step is made, and, by ``graph_key``, on a
   CPU model, with a ``scheduler`` (it rewrites ``lr`` after every step,
   which a graph would not see) and with an optimizer that cannot be
-  captured (``capturable`` off).  A replay launches K6 from the card, not
-  through its wrapper, so ``ops/kernels/relu_pool.py``'s ``launches``
-  counts the capture's launches and none of the replays'; the device trace
-  counts every launch.
+  captured (``capturable`` off).  A replay launches K6 and the conv weight
+  gradient's kernel from the card, not through their wrappers, so the
+  ``launches`` of ``ops/kernels/relu_pool.py`` and ``conv_wgrad.py`` count
+  the capture's launches and none of the replays'; the device trace counts
+  every launch.
 * under a ``torch.profiler`` session each step records its spans
   (``utils/profiling.py``): the root ``train.step`` (``rows``, the batch;
   ``graph``: 1 where the graph ran the step, the capture's step included,
-  else 0); on an eager step ``train.forward`` (z-score, logits, loss),
+  else 0; ``wgrad``: the step's conv weight gradients that the hand-written
+  kernel computes (``ops/conv_wgrad.py``), a replay's those of its capture);
+  on an eager step ``train.forward`` (z-score, logits, loss),
   ``train.backward`` and ``train.optimizer`` (``zero_grad``, and AdamW's
   step) inside it; on the capture's step ``train.capture``, which holds
   those three as the capture records them; a replay has no host phases.
@@ -79,6 +82,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ptbxl_torch.models.ecg_cnn import precision_scope
+from ptbxl_torch.ops.kernels import conv_wgrad
 from ptbxl_torch.ops.preprocess import zscore_per_lead_batch
 from ptbxl_torch.ops.relu_pool import framework_pool_bwd_forced
 from ptbxl_torch.training.metrics import compute_metrics
@@ -171,10 +175,12 @@ class _Captured:
         self.holds = (state.model, state.optimizer)  # the ids in the key stay theirs
         self.inputs = {k: v.clone() for k, v in b.items()}
         self.graph = torch.cuda.CUDAGraph()
+        wgrad = conv_wgrad.launches
         # thread_local: the feed's producer thread pins and copies batches
         # while the capture runs
         with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
             self.loss = body(state, self.inputs)
+        self.wgrad = conv_wgrad.launches - wgrad  # the conv weight gradients it holds
 
     def replay(self, b: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The step on ``b``; a fresh copy of its loss (the next replay
@@ -234,7 +240,7 @@ def make_train_step(multimodal: bool = False, normalize: str = "per_lead", mesh=
         if captured is not None and captured.key != key:
             captured = None
         graph = key is not None and (captured is not None or key == warm)
-        with span("train.step", rows=len(batch["mask"]), graph=int(graph)):
+        with span("train.step", rows=len(batch["mask"]), graph=int(graph)) as rec:
             model.train()
             if graph and captured is None:
                 with span("train.capture"), precision_scope(model.precision), \
@@ -242,8 +248,10 @@ def make_train_step(multimodal: bool = False, normalize: str = "per_lead", mesh=
                     captured = _Captured(key, body, state, b, side)
             if graph:
                 loss = captured.replay(b)
+                wgrad = captured.wgrad
             else:
                 warm = key
+                wgrad = conv_wgrad.launches
                 with precision_scope(model.precision), deterministic_algorithms():
                     if key is None:
                         loss = body(state, b)
@@ -251,6 +259,9 @@ def make_train_step(multimodal: bool = False, normalize: str = "per_lead", mesh=
                         if side is None:
                             side = torch.cuda.Stream(b["mask"].device)
                         loss = on_side(state, b)
+                wgrad = conv_wgrad.launches - wgrad
+            if rec is not None:
+                rec.add(wgrad=wgrad)
             if state.scheduler is not None:
                 state.scheduler.step()
             state.step += 1

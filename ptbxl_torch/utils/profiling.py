@@ -7,7 +7,8 @@
   (the clock the benchmark's host spans use, mapped onto the profiler's by
   their offset), its id, its parent's and its root's (so every span of one
   ``Predictor`` call or one train step shares its root's id), its thread and
-  the integer counts given (``bytes``, ``rows``, ``pad_rows``).  A recorded
+  the integer counts given (``bytes``, ``rows``, ``pad_rows``), or added
+  before it ends (``_Recording.add``).  A recorded
   span also opens a ``record_function`` range of its name, so the trace
   shows it: the fast form that torch's own compiled code uses
   (``torch._C._profiler._RecordFunctionFast``; a whole span cost ~5 us on
@@ -77,6 +78,11 @@ class _Recording:
         self._rf.__enter__()
         self.start_ns = time.perf_counter_ns()
         return self
+
+    def add(self, **counts: int) -> None:
+        """Counts known only before the span ends (``with span(...) as rec``;
+        ``rec`` is None while nothing records)."""
+        self.counts.update(counts)
 
     def __exit__(self, *exc):
         end = time.perf_counter_ns()

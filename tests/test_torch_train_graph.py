@@ -284,6 +284,34 @@ def test_card_replays_launch_k6_from_the_card(arch, card):
 
 @pytest.mark.card
 @pytest.mark.parametrize("arch", ARCHS)
+def test_card_replayed_wgrad_kernel_equals_eager_steps(arch, card):
+    """The f32 step's four conv weight gradients come from the hand-written
+    kernel (ops/conv_wgrad.py) on eager steps, in the capture and in every
+    replay: each ``train.step`` span counts 4 (a replay its capture's), the
+    device trace holds the kernel four times a step, and the graph steps equal
+    eager ones bit for bit."""
+    batches = _on_card(_batches(6, arch, B, T, seed=8))
+    state = create_train_state(_model(arch, "cuda"), LR, WD)
+    step = make_train_step(multimodal=arch == "multimodal")
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        losses = [step(state, b)[1] for b in batches]
+        torch.cuda.synchronize()
+    steps = sorted((s for s in profiling.spans() if s.name == "train.step"),
+                   key=lambda s: s.start_ns)
+    profiling.clear()
+    on_trace = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "conv_wgrad_kernel" in e.name)
+    assert [s.counts["graph"] for s in steps] == [0, 0, 1, 1, 1, 1]
+    assert [s.counts["wgrad"] for s in steps] == [4] * 6
+    assert on_trace == 4 * 6
+    want, _, _, ref = _run(arch, batches, eager=True)
+    assert [float(x) for x in losses] == want
+    _assert_bit_equal(_snapshot(state), _snapshot(ref))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("arch", ARCHS)
 def test_card_epoch_through_the_feed_equals_eager(arch, card):
     """``train_one_epoch`` (each loss read one step late) fed by
     ``device_prefetch``, whose producer thread pins and copies while the

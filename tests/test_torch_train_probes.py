@@ -77,6 +77,7 @@ def test_probe_bwd_breakdown(capsys):
     assert probe_bwd_breakdown.main(TINY) == 0
     out = capsys.readouterr().out
     assert "block3 bwd slice" in out and "freeze k4 kernel" in out and "fast_wgrad b1" in out
+    assert "cudnn wgrad" in out and out.count("\nwgrad b") == 4
     # the fast-wgrad rung computes the standard rung's step
     batch = probe_train_gap.make_batch(2, 32, torch.device("cpu"))
     x0 = zscore_per_lead_batch(batch["ecg"])

@@ -137,8 +137,8 @@ def test_every_kernel_source_takes_the_helpers_from_the_header():
     assert {"mbar_wait", "bulk_load", "wg_wait", "WgmmaTf32", "ptbxl_ensure_device",
             "ptbxl_strerror"} <= names
     sources = sorted(_build.CSRC.glob("*.cu"))
-    assert {s.stem for s in sources} == {"fused_ecgcnn", "hybrid_wgmma", "probes", "relu_pool",
-                                         "zscore"}
+    assert {s.stem for s in sources} == {"conv_wgrad", "fused_ecgcnn", "hybrid_wgmma", "probes",
+                                         "relu_pool", "zscore"}
     for s in sources:
         src = s.read_text()
         assert '#include "hopper.cuh"' in src, s.name
